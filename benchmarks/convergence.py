@@ -6,8 +6,8 @@ Lanczos-expm receiver value vs a 10^6-step forward-Euler FDTD run, for
 m = 1..12.  The reference curve falls from 5.5e-2 at m=1 to a ~1.8e-9
 plateau at m >= 6 (float64 path).
 
-Runs on CPU (n=252 is tiny; fp64 is native there) and writes a CSV
-consumed by `plots.py --conv-csv`.
+An accuracy experiment, not a timing: it runs on the CPU (n=252 is
+tiny) in float64 and writes a CSV of (m, relative error).
 
 Usage: python benchmarks/convergence.py [--block] [--csv out.csv]
 """
@@ -16,11 +16,12 @@ from __future__ import annotations
 
 import argparse
 import csv
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
@@ -36,7 +37,7 @@ def main():
     # lanczos_plots.m:168); distant receivers (e.g. lc ~ 77) sit at the
     # FDTD oracle's own forward-Euler error floor instead.
     ap.add_argument("--lc", type=int, default=30)
-    ap.add_argument("--csv", default="benchmarks/results/convergence.csv")
+    ap.add_argument("--csv", default="convergence.csv")
     args = ap.parse_args()
 
     import jax.numpy as jnp

@@ -1,28 +1,23 @@
-"""North-star configs 4-5: an assembled >=10M-row, >=100M-nnz
-SuiteSparse-style banded SPD matrix through the windowed-ELL kernel and
-block-Lanczos eigsh, end to end on one chip.
+"""BASELINE configs 3-5 on one GPU: an assembled >=10M-row, >=100M-nnz
+SuiteSparse-style banded SPD matrix (`models/banded.py`) through the
+assembled-matrix operators and block-Lanczos eigsh, end to end.
 
 Reference counterpart: `measurements/spmv_spmm.cu:345` benchmarks the
 gathered ELL SpMM at N=160 (24.6M rows); the whole-algorithm driver is
 `tensor_core_unfinished_work/measure_lanczos.cu`.  This script records:
 
-  * SpMM nnz/s on the padded chained path (the metric BASELINE.json
-    judges against >=70%-of-roofline),
-  * the measured copy-bandwidth roofline at the same state size (the
-    denominator),
-  * top-k Ritz values with true-beta_m residual bounds and the
-    ITERATIONS-TO-CONVERGE curve (residual vs block steps, recovered
-    from truncations of the block-tridiagonal T — no stored basis
-    needed at this scale),
-  * a .mtx round-trip proof on a small slab (io.py loaders).
+  * block SpMM nnz/s of the gathered ELL, DIA and BSR (bs=8) operators,
+    with the least bytes each needs against a copy of the same state,
+  * top-k Ritz values with the |beta_m S| bounds and the
+    ITERATIONS-TO-CONVERGE curve (bound vs block steps, recovered from
+    truncations of the block-tridiagonal T),
+  * MEASURED relative residuals ||A y - theta y|| / |theta|,
+  * a .mtx round-trip on a small slab (io.py loaders).
 
-The 8-device-mesh equivalence of the same operator is asserted in
-`tests/test_dist_windowed.py` (CPU mesh); this script optionally runs the
-distributed operator on a 1-device mesh to validate that code path on
-real hardware (--dist).
+Times are the host clock around `block_until_ready`.  Refuses to run
+without a GPU.
 
-Usage: python benchmarks/suitesparse_scale.py [--rows 10485760]
-       [--json benchmarks/results/suitesparse_scale.json]
+Usage: python benchmarks/suitesparse_scale.py [--rows 10485760] [--json out]
 """
 
 from __future__ import annotations
@@ -31,44 +26,16 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
-
-sys.path.insert(0, "/root/repo")
-
-import numpy as np
-import scipy.sparse as sp
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-def synth_suitesparse_banded(n: int, seed: int = 0):
-    """Synthetic SuiteSparse-style SPD matrix: 11 scattered diagonals
-    (near + mid + far bands, like a high-order FD/FE discretization),
-    random entries, diagonally dominant.  nnz ~ 11n."""
-    rng = np.random.default_rng(seed)
-    offsets = [0, 1, -1, 7, -7, 64, -64, 513, -513, 4999, -4999]
-    offsets = [o for o in offsets if abs(o) < n]
-    diags = []
-    for o in offsets:
-        ln = n - abs(o)
-        if o == 0:
-            diags.append(np.zeros(ln))  # filled below for dominance
-        else:
-            diags.append(rng.standard_normal(ln) * 0.5)
-    a = sp.diags(diags, offsets, format="csr")
-    a = 0.5 * (a + a.T)
-    rowsum = np.abs(a).sum(axis=1).A1 if hasattr(np.abs(a).sum(axis=1), "A1") \
-        else np.asarray(np.abs(a).sum(axis=1)).ravel()
-    # separated dominant modes so top-k convergence is finite (a pure
-    # random band has a clustered edge that no Krylov method resolves).
-    # The spikes must clear the band continuum's edge (~2x the max row
-    # sum) by a real gap, or the no-reorth f32 recurrence — the only
-    # affordable mode at 10M rows — stalls before the tol is met.
-    spikes = np.zeros(n)
-    spikes[rng.choice(n, size=5, replace=False)] = [500, 450, 400, 350, 300]
-    a = a + sp.diags(rowsum + 1.0 + spikes)
-    return a.tocsr().astype(np.float32)
+from lanczos_tpu.models.banded import synth_suitesparse_banded  # noqa: E402
 
 
 def convergence_curve(alphas, betas, beta_final, k, cluster_rtol=1e-4):
@@ -111,191 +78,89 @@ def convergence_curve(alphas, betas, beta_final, k, cluster_rtol=1e-4):
     return curve
 
 
+def run(rows: int, p: int, m: int, k: int, reorth: str, tol: float) -> dict:
+    from lanczos_tpu.io import load_sparse
+    from lanczos_tpu.methods.eigs import block_lanczos_eigsh, ritz_residuals
+    from lanczos_tpu.methods.block_lanczos import block_lanczos
+    from lanczos_tpu.ops.formats import (
+        bsr_from_scipy,
+        dia_from_scipy,
+        ell_from_scipy,
+    )
+    from lanczos_tpu.utils.timing import steady
+    from scipy.io import mmwrite
+
+    out = {"rows": rows, "p": p, "m": m, "k": k, "reorth": reorth}
+    t0 = time.perf_counter()
+    a = synth_suitesparse_banded(rows)
+    out["nnz"] = int(a.nnz)
+    out["assemble_seconds"] = time.perf_counter() - t0
+
+    slab = a[:2000, :2000].tocoo()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "slab.mtx")
+        mmwrite(path, slab)
+        err = abs(slab.tocsr() - load_sparse(path)).max()
+        assert err <= 1e-6 * abs(slab).max()
+    out["mtx_roundtrip"] = True
+
+    x = jax.random.normal(jax.random.PRNGKey(0), (p, rows), jnp.float32)
+    out["copy_seconds"] = steady(jax.jit(lambda x: x + 1), x)
+    ops = {"ell": ell_from_scipy(a), "dia": dia_from_scipy(a),
+           "bsr8": bsr_from_scipy(a, block_size=8)}
+    for name, op in ops.items():
+        sec = steady(jax.jit(lambda op, x: op.mm(x)), op, x)
+        planes = sum(v.nbytes for v in jax.tree.leaves(op))
+        out[f"spmm_{name}_seconds"] = sec
+        out[f"spmm_{name}_nnz_per_s"] = a.nnz * p / sec
+        out[f"spmm_{name}_min_gbps"] = (planes + 2 * x.nbytes) / sec / 1e9
+        print(f"spmm {name}: {sec * 1e3:.3f} ms "
+              f"{out[f'spmm_{name}_nnz_per_s']:.3e} nnz/s", flush=True)
+
+    op = ops["ell"]
+    t0 = time.perf_counter()
+    res = jax.block_until_ready(block_lanczos(op, x, m, reorth=reorth))
+    out["lanczos_seconds"] = time.perf_counter() - t0
+    curve = convergence_curve(np.asarray(res.alphas), np.asarray(res.betas),
+                              np.asarray(res.beta_final), k)
+    out["convergence"] = curve
+    scale = max(abs(v) for v in curve[-1]["ritz"])
+    out["iters_to_converge"] = next(
+        (c["m"] for c in curve if max(c["resid"]) < tol * scale), None)
+    vals, vecs, bound = block_lanczos_eigsh(op, x, m, k, reorth=reorth,
+                                            compute_vectors=True)
+    out["top_ritz"] = np.asarray(vals).tolist()
+    out["resid_bound"] = np.asarray(bound).tolist()
+    out["measured_resid"] = np.asarray(ritz_residuals(op, vals, vecs)).tolist()
+    print(f"top-{k} Ritz {out['top_ritz']} measured_resid "
+          f"{out['measured_resid']} iters_to_{tol}: "
+          f"{out['iters_to_converge']}", flush=True)
+    return out
+
+
 def main():
+    from lanczos_tpu.utils.compile_cache import use_checkout_cache
+    from lanczos_tpu.utils.timing import card_line, require_gpu
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=10_485_760)
     ap.add_argument("--p", type=int, default=8)
     ap.add_argument("--m", type=int, default=12)
-    ap.add_argument("--reorth", default="full")
+    ap.add_argument("--reorth", default="periodic")
     ap.add_argument("--k", type=int, default=5)
     ap.add_argument("--tol", type=float, default=1e-3)
-    ap.add_argument("--dist", action="store_true",
-                    help="also run the sharded operator on a 1-device mesh")
-    ap.add_argument("--json", type=str,
-                    default="benchmarks/results/suitesparse_scale.json")
+    ap.add_argument("--json", type=str, default=None)
     args = ap.parse_args()
-
-    from lanczos_tpu.methods.block_lanczos import block_lanczos
-    from lanczos_tpu.ops.pallas.window_ell import (
-        PaddedWindowedOperator,
-        windowed_from_scipy,
-    )
-    from lanczos_tpu.utils.bench_loop import slope_time_chain
-
-    out = {"rows": args.rows, "p": args.p, "m": args.m, "k": args.k}
-
-    t0 = time.time()
-    a = synth_suitesparse_banded(args.rows)
-    out["nnz"] = int(a.nnz)
-    print(f"assembled {a.shape[0]} rows, {a.nnz} nnz "
-          f"({time.time()-t0:.1f}s)", flush=True)
-
-    # .mtx round-trip proof on a small slab (config 4's file-based entry)
-    from lanczos_tpu.io import load_sparse
-    from scipy.io import mmwrite
-    slab = a[:2000, :2000].tocoo()
-    os.makedirs("benchmarks/results", exist_ok=True)
-    mmwrite("benchmarks/results/_slab.mtx", slab)
-    slab2 = load_sparse("benchmarks/results/_slab.mtx")
-    assert abs(slab.tocsr() - slab2).max() < 1e-6
-    os.remove("benchmarks/results/_slab.mtx")
-    out["mtx_roundtrip"] = True
-    print("mtx round-trip ok", flush=True)
-
-    t0 = time.time()
-    A = windowed_from_scipy(a, reorder="none")
-    out["plan_seconds"] = time.time() - t0
-    out["ppc"] = A.ppc
-    out["wsz"] = A.wsz
-    print(f"plan {out['plan_seconds']:.1f}s ppc={A.ppc} wsz={A.wsz} "
-          f"ng={A.ng}", flush=True)
-
-    rng = np.random.default_rng(0)
-    X = rng.standard_normal((args.p, args.rows)).astype(np.float32)
-    Xp = A.pack(jnp.asarray(X))
-
-    # SpMM throughput + measured roofline at the same state size.  Fold
-    # the anti-overflow scaling INTO the operator (scale its values once)
-    # rather than damping the chain: ||A||~100 overflows f32 after ~20
-    # undamped applications, while a `* damp` pass would add a full extra
-    # read+write of the state per step and inflate the measurement.
-    import dataclasses as _dc
-    A_t = _dc.replace(A, planes_data=A.planes_data * (1.0 / 1024.0))
-    sec = slope_time_chain(lambda y, A: A.padded_mm(y), Xp, A_t, damp=None)
-    out["spmm_seconds"] = sec
-    out["spmm_nnz_per_s"] = a.nnz * args.p / sec
-    copy_sec = slope_time_chain(lambda y: 1.0 - y, Xp, damp=None)
-    pp = Xp.shape[0]
-    out["copy_gbps"] = 2 * pp * A.n128 * 4 / copy_sec / 1e9
-    # the Pallas-pipeline ceiling at the same footprint (any Pallas
-    # kernel that both reads and writes HBM caps at ~half the XLA copy
-    # on this chip — see kernel_bench._pallas_copy)
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from kernel_bench import _pallas_copy
-    pcopy_sec = slope_time_chain(lambda y: _pallas_copy(y), Xp, damp=None)
-    out["pallas_copy_gbps"] = 2 * pp * A.n128 * 4 / pcopy_sec / 1e9
-    # kernel effective traffic vs those rooflines
-    kernel_bytes = A.planes_data.size * 8 + 2 * pp * A.n128 * 4
-    out["spmm_gbps"] = kernel_bytes / sec / 1e9
-    out["spmm_pct_of_copy_bw"] = 100.0 * out["spmm_gbps"] / out["copy_gbps"]
-    out["spmm_pct_of_pallas_copy"] = (
-        100.0 * out["spmm_gbps"] / out["pallas_copy_gbps"]
-    )
-    print(f"spmm p={args.p}: {sec*1e3:.3f} ms  "
-          f"{out['spmm_nnz_per_s']:.3e} nnz/s  "
-          f"{out['spmm_gbps']:.0f} GB/s "
-          f"({out['spmm_pct_of_copy_bw']:.0f}% of measured copy BW "
-          f"{out['copy_gbps']:.0f} GB/s)", flush=True)
-
-    # Whole-algorithm: m-step block Lanczos.  reorth='full' stores the
-    # basis (m * p * n * 4B = 4 GB at the default 10.5M rows — fits HBM
-    # next to the ~1.3 GB plane arrays) and is REQUIRED for correctness
-    # here: with reorth='none' (or skipped-step 'periodic') the block
-    # recurrence diverges once the well-separated top modes converge —
-    # normalization amplifies the un-orthogonalized residual's noise and
-    # Ritz values escape the spectrum (see block_lanczos's breakdown_tol
-    # / replace_dead docstrings), unlike the scalar recurrence Paige's
-    # analysis bounds.
-    op = PaddedWindowedOperator(A)
-    t0 = time.time()
-    res = jax.block_until_ready(
-        # TSQR normalization (never squares the condition number — the
-        # sqrtm path diverges once the well-separated modes converge and
-        # the residual Gram goes numerically singular), adaptive
-        # dead-direction replacement (replace_dead: converged directions
-        # are restarted as fresh basis-orthogonal vectors), newton sqrtm
-        # only for the final-bound fallback paths.
-        block_lanczos(op, Xp, args.m, reorth=args.reorth,
-                      eig_backend="newton", normalize="qr",
-                      breakdown_eps=1e-4, replace_dead=True)
-    )
-    out["lanczos_seconds"] = time.time() - t0
-    curve = convergence_curve(
-        np.asarray(res.alphas), np.asarray(res.betas),
-        np.asarray(res.beta_final), args.k,
-    )
-    out["convergence"] = curve
-    scale = max(abs(v) for v in curve[-1]["ritz"])
-    iters = next(
-        (c["m"] for c in curve if max(c["resid"]) < args.tol * scale),
-        None,
-    )
-    out["iters_to_converge"] = iters
-    out["top_ritz"] = curve[-1]["ritz"]
-    out["final_resid_bound"] = curve[-1]["resid"]
-
-    # MEASURED relative residuals ||A y - theta y|| / |theta| for the
-    # published pairs (VERDICT r4 missing #3: the |beta_m S| numbers
-    # above are BOUNDS from the T coefficients; after deflation/freeze
-    # they can read 1e-22, which f32 cannot certify — this column is
-    # the backward-error certificate, one extra SpMM per pair).
-    # Computed from a SECOND run at m just past the convergence point:
-    # the full-m basis (m * p * n * 4B ~ 4 GB at m=12) next to the
-    # result copy blew the 16 GB HBM; m=6 > iters_to_converge=4 is where
-    # the claim lives anyway and its basis is half the size.
-    from lanczos_tpu.methods.eigs import ritz_residuals
-    from lanczos_tpu.ops.tridiag import assemble_block_tridiagonal
-
-    m_res = min(args.m, max((iters or args.m) + 2, 6))
-    res2 = jax.block_until_ready(
-        block_lanczos(op, Xp, m_res, reorth=args.reorth,
-                      eig_backend="newton", normalize="qr",
-                      breakdown_eps=1e-4, replace_dead=True,
-                      store_basis=True)
-    )
-    t = np.asarray(assemble_block_tridiagonal(res2.alphas, res2.betas[1:]))
-    w, s = np.linalg.eigh(t)
-    order = np.argsort(w)[::-1]
-    sel = []
-    for i in order:
-        if any(abs(w[i] - w[j]) <= 1e-4 * max(scale, 1.0) for j in sel):
-            continue
-        sel.append(i)
-        if len(sel) == args.k:
-            break
-    basis_flat = np.asarray(res2.basis).reshape(m_res * Xp.shape[0], -1)
-    vecs = jnp.asarray(
-        basis_flat.T @ s[:, sel], jnp.float32
-    )  # (n128, k)
-    out["measured_resid_m"] = m_res
-    op_meas = PaddedWindowedOperator(A)
-    meas = np.asarray(
-        ritz_residuals(op_meas, jnp.asarray(w[sel], jnp.float32), vecs)
-    )
-    out["measured_resid"] = [float(x) for x in meas]
-    print(f"lanczos m={args.m}: {out['lanczos_seconds']:.1f}s  "
-          f"top-{args.k} Ritz {out['top_ritz']}  "
-          f"resid_bound {out['final_resid_bound']}  "
-          f"measured_resid {out['measured_resid']}  "
-          f"iters_to_{args.tol}rel: {iters}",
-          flush=True)
-
-    if args.dist:
-        from lanczos_tpu.parallel.dist_windowed import halo_sharded_windowed
-        from lanczos_tpu.parallel.mesh import make_mesh
-
-        mesh = make_mesh(min(len(jax.devices()), 8))
-        Ad = halo_sharded_windowed(a, mesh, reorder="none")
-        Xd = Ad.pad_vector(X[:, : args.rows])
-        sec = slope_time_chain(lambda y, Ad: Ad.mm(y), Xd, Ad, damp=1e-2)
-        out["dist_devices"] = int(np.prod(mesh.devices.shape))
-        out["dist_spmm_nnz_per_s"] = a.nnz * args.p / sec
-        print(f"dist({out['dist_devices']} dev) spmm: "
-              f"{out['dist_spmm_nnz_per_s']:.3e} nnz/s", flush=True)
-
-    with open(args.json, "w") as f:
-        json.dump(out, f, indent=1)
-    print(f"wrote {args.json}", flush=True)
+    dev = require_gpu("suitesparse_scale")
+    use_checkout_cache()
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    out = run(args.rows, args.p, args.m, args.k, args.reorth, args.tol)
+    out["device"] = {"kind": dev.device_kind, "card": card}
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"wrote {args.json}", flush=True)
 
 
 if __name__ == "__main__":

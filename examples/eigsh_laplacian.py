@@ -6,9 +6,10 @@ Single-vector Lanczos with full re-orthogonalization on a 10k x 10k
     python examples/eigsh_laplacian.py
 """
 
+import os
 import sys
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 

@@ -1,13 +1,14 @@
 """Matrix-exponential action on the 3-D Maxwell operator — the
-reference's headline pipeline (`test_lanczos.cu`), on the Pallas
-stencil fast path with an FDTD oracle check.
+reference's headline pipeline (`test_lanczos.cu`), on the stacked
+folded-plane state with an FDTD oracle check.
 
     python examples/expm_maxwell.py [N]
 """
 
+import os
 import sys
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,7 @@ from lanczos_tpu.models.rhs import gaussian_matrix_B
 
 
 def main(n_grid: int = 10):
-    op = lt.PallasMaxwellOperator.create(n_grid, n_grid, n_grid)
+    op = lt.StackedMaxwellOperator.create(n_grid, n_grid, n_grid)
     p, m, lc = 4, 8, 30
     B = op.pack(jnp.asarray(np.asarray(
         gaussian_matrix_B(n_grid, op.n, p), np.float32)))

@@ -1,16 +1,20 @@
-"""The round-4 fast paths: fused (traffic-minimal) recurrence and
-compensated (error-free-transform) Gram accumulation.
+"""The fused (traffic-minimal) recurrence and compensated (float64)
+Gram accumulation.
 
 Run on CPU:   JAX_PLATFORMS=cpu python examples/fused_and_compensated.py
-Run on TPU:   python examples/fused_and_compensated.py
+Run on a GPU: python examples/fused_and_compensated.py
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
+
+jax.config.update("jax_enable_x64", True)  # compensated=True accumulates in f64
+
 import jax.numpy as jnp
 import numpy as np
 
@@ -26,7 +30,7 @@ op32 = MatrixOperator(jnp.asarray(A, jnp.float32))
 b32 = jnp.asarray(rng.standard_normal((p, n)), jnp.float32)
 
 # 1. Bare (no-reorth) runs on big states auto-route through the fused
-#    recurrence (3 HBM passes / iteration; the residual block is never
+#    recurrence (3 state passes / iteration; the residual block is never
 #    materialized).  fused=True forces it at any size; fused=False forces
 #    the reference-semantics materialized scan.
 r_fused = block_lanczos(op32, b32, m, fused=True)
@@ -36,10 +40,9 @@ print(
     float(jnp.max(jnp.abs(r_fused.alphas - r_classic.alphas))),
 )
 
-# 2. compensated=True computes every Gram with TwoProd/TwoSum error-free
-#    transforms: T coefficients at ~eps_f32 of the f64 oracle, from f32
-#    storage — the TPU-native stand-in for the reference's all-double
-#    block driver (no f64 hardware needed).
+# 2. compensated=True accumulates every Gram in float64 from the f32
+#    states: T coefficients at ~eps_f32 of the f64 oracle — the
+#    reference's all-double block driver accuracy from f32 storage.
 r_comp = block_lanczos(op32, b32, m, compensated=True)
 print("compensated alphas[0][0,0]:", float(r_comp.alphas[0][0, 0]))
 

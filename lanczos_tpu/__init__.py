@@ -1,23 +1,23 @@
-"""lanczos_tpu — TPU-native single-vector and block Lanczos framework.
+"""lanczos_tpu — single-vector and block Lanczos framework in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the CUDA
-reference ``ibrohimmn1994/GPU-implementation-of-signle-and-block-Lanczos``
+A JAX/XLA implementation of the capabilities of the CUDA reference ``ibrohimmn1994/GPU-implementation-of-signle-and-block-Lanczos``
 (see SURVEY.md): Lanczos tridiagonalization of large sparse symmetric
 operators, used both for eigenvalue extraction (Ritz values) and to
 approximate the action of a matrix exponential ``u(T) = expm(T*A) @ b``
 at a receiver location, validated against an explicit forward-Euler FDTD
 oracle on a 3-D staggered-grid Maxwell semi-discretization.
 
-Design stance (TPU-first, not a port):
+Design stance (a re-design, not a port), running on NVIDIA GPUs:
   * functional core: `lax.scan` recurrences, pytree matrix containers;
-  * SpMV/SpMM as contiguous stencil ops (Pallas / fused XLA) instead of the
-    reference's float4-gather ELL kernels (`source/kernels/spmv_spmm.hpp`);
-  * all block-dense math (Gram products, tall x small updates) on the MXU,
-    completing the reference's abandoned tensor-core direction
-    (`source/tensor_core_unfinished_work/`);
+  * the Maxwell SpMV/SpMM as a matrix-free stencil that XLA fuses, beside
+    gathered ELL / DIA / CSR / BSR containers for assembled matrices (the
+    reference's `ell::SpMM`, `source/kernels/spmv_spmm.hpp`);
+  * block-dense math (Gram products, tall x small updates) in XLA at
+    precision HIGHEST, with the fused recurrence's multi-operand Gram as a
+    Pallas kernel on the Triton route (the reference's `mm_tt`);
   * small-block sqrtm via an in-graph batched Jacobi eigensolver (replaces
     the warp-level Householder+QL kernel `source/kernels/my_sqrtm_cusolver.hpp`);
-  * multi-chip scaling via `jax.sharding.Mesh` + `shard_map` with psum /
+  * multi-card scaling via `jax.sharding.Mesh` + `shard_map` with psum /
     all_gather / ppermute collectives (the reference is single-GPU).
 """
 
@@ -47,18 +47,12 @@ _API = {
     "coo_from_scipy": "lanczos_tpu.ops.formats",
     "bsr_from_scipy": "lanczos_tpu.ops.formats",
     "dia_from_scipy": "lanczos_tpu.ops.formats",
-    "WindowedEllMatrix": "lanczos_tpu.ops.pallas.window_ell",
-    "windowed_from_scipy": "lanczos_tpu.ops.pallas.window_ell",
-    "windowed_from_ell": "lanczos_tpu.ops.pallas.window_ell",
-    "PaddedWindowedOperator": "lanczos_tpu.ops.pallas.window_ell",
-    "halo_sharded_windowed": "lanczos_tpu.parallel.dist_windowed",
-    "HaloShardedWindowed": "lanczos_tpu.parallel.dist_windowed",
     "tsqr": "lanczos_tpu.ops.tsqr",
     "tsqr_sharded": "lanczos_tpu.ops.tsqr",
     "LinearOperator": "lanczos_tpu.ops.operator",
     "MaxwellOperator": "lanczos_tpu.models.maxwell",
-    "PallasMaxwellOperator": "lanczos_tpu.models.maxwell_pallas",
-    "DistributedPallasMaxwell": "lanczos_tpu.parallel",
+    "StackedMaxwellOperator": "lanczos_tpu.models.maxwell_stacked",
+    "DistributedStackedMaxwell": "lanczos_tpu.parallel",
     "halo_sharded_ell": "lanczos_tpu.parallel",
     "gather_sharded_ell": "lanczos_tpu.parallel",
     "make_mesh": "lanczos_tpu.parallel",

@@ -1,8 +1,8 @@
-"""CLI driver — the reference's `test_lanczos.cu` main, TPU-native.
+"""CLI driver — the reference's `test_lanczos.cu` main.
 
     python -m lanczos_tpu -N 10 -m 5 --block --n-col 4
     python -m lanczos_tpu -N 10 -m 8 --vector --reorth selective
-    python -m lanczos_tpu -N 8 -m 5 --operator pallas --devices 4
+    python -m lanczos_tpu -N 8 -m 5 --operator stacked --devices 4
 
 Assembles the 3-D Maxwell fixture, runs (block) Lanczos, propagates the
 matrix exponential to the receiver index, and validates against the
@@ -25,7 +25,7 @@ from lanczos_tpu.config import LanczosConfig
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="lanczos_tpu",
-        description="TPU-native single/block Lanczos expm-action driver",
+        description="single/block Lanczos expm-action driver",
     )
     ap.add_argument("-N", "--n-grid", type=int, default=10)
     ap.add_argument("-m", "--iterations", type=int, default=5)
@@ -61,24 +61,27 @@ def build_parser() -> argparse.ArgumentParser:
                     "beta-block rcond estimate (block) below this "
                     "triggers; 0 disables")
     ap.add_argument("--operator", default="stencil",
-                    choices=["stencil", "pallas", "ell"])
+                    choices=["stencil", "stacked", "ell"],
+                    help="stencil: matrix-free flat state; stacked: folded-"
+                         "plane state (the one that shards over --devices); "
+                         "ell: assembled gathered ELL")
     ap.add_argument("--no-fused", dest="fused", action="store_false",
                     default=None,
                     help="force the materialized (reference-semantics) "
                          "recurrence instead of the traffic-minimal "
                          "fused path that bare reorth='none' runs use")
     ap.add_argument("--compensated", action="store_true",
-                    help="TwoProd/TwoSum error-free-transform Gram "
-                         "accumulation: f64-oracle-level T coefficients "
-                         "from f32 storage (the TPU-native stand-in for "
-                         "the reference's all-double block driver)")
+                    help="float64 Gram accumulation on the fused path: "
+                         "f64-oracle-level T coefficients from f32 storage "
+                         "(the reference's all-double block driver "
+                         "accuracy)")
     ap.add_argument("--devices", type=int, default=1)
     ap.add_argument("--no-validate", dest="validate", action="store_false")
     ap.add_argument(
         "--profile", dest="profile_dir", metavar="DIR", default=None,
         help="capture a jax.profiler trace of the Lanczos run into DIR "
-        "(view with TensorBoard / xprof; the TPU-native replacement for "
-        "the reference's steady_clock brackets)",
+        "(view with TensorBoard / xprof; replaces the reference's "
+        "steady_clock brackets)",
     )
     return ap
 
@@ -112,34 +115,41 @@ def run(cfg: LanczosConfig) -> dict:
     from lanczos_tpu.models.rhs import gaussian_matrix_B, gaussian_vector_b
 
     dtype = jnp.dtype(cfg.dtype)
-    if cfg.dtype == "float64":
+    if cfg.dtype == "float64" or cfg.compensated:
         jax.config.update("jax_enable_x64", True)
+    if cfg.devices > 1 and cfg.operator != "stacked":
+        raise ValueError("--devices > 1 shards the stacked operator: "
+                         "pass --operator stacked")
 
     n_grid = cfg.n_grid
     if cfg.operator == "ell":
         op = maxwell_ell_operator(n_grid, n_grid, n_grid)
         n = op.shape[0]
-        pack = unpack = lambda x: x
+        pack, unpack = jnp.asarray, lambda x: x
         trace_fn = None
-    elif cfg.operator == "pallas":
+    elif cfg.operator == "stacked":
         if cfg.devices > 1:
-            from lanczos_tpu.parallel import DistributedPallasMaxwell, make_mesh
+            from lanczos_tpu.parallel import DistributedStackedMaxwell, make_mesh
 
             mesh = make_mesh(cfg.devices)
-            op = DistributedPallasMaxwell.create(
+            op = DistributedStackedMaxwell.create(
                 n_grid, n_grid, n_grid, mesh, dtype=dtype
             )
         else:
-            from lanczos_tpu.models.maxwell_pallas import PallasMaxwellOperator
+            from lanczos_tpu.models.maxwell_stacked import (
+                StackedMaxwellOperator,
+            )
 
-            op = PallasMaxwellOperator.create(n_grid, n_grid, n_grid, dtype=dtype)
+            op = StackedMaxwellOperator.create(
+                n_grid, n_grid, n_grid, dtype=dtype
+            )
         n = op.n
         pack, unpack = op.pack, op.unpack
         trace_fn = op.trace_fn
     else:
         op = MaxwellOperator.create(n_grid, n_grid, n_grid, dtype=dtype)
         n = op.n
-        pack = unpack = lambda x: x
+        pack, unpack = jnp.asarray, lambda x: x
         trace_fn = None
 
     rng = random.Random(cfg.seed)
@@ -161,7 +171,7 @@ def run(cfg: LanczosConfig) -> dict:
             b_np = np.asarray(
                 gaussian_matrix_B(n_grid, n, cfg.n_col), np.dtype(cfg.dtype)
             )
-            b = pack(jnp.asarray(b_np))
+            b = pack(b_np)
             kwargs = dict(reorth=cfg.reorth, eig_backend=cfg.eig_backend,
                           breakdown_tol=cfg.breakdown_tol,
                           normalize=cfg.normalize,
@@ -178,7 +188,7 @@ def run(cfg: LanczosConfig) -> dict:
                 )
             return b, np.asarray(jax.block_until_ready(sol))
         b_np = np.asarray(gaussian_vector_b(n_grid, n), np.dtype(cfg.dtype))
-        b = pack(jnp.asarray(b_np))
+        b = pack(b_np)
         reorth = "none" if cfg.reorth == "periodic" else cfg.reorth
         if trace_fn is not None:
             sol = lanczos_expm_action(
@@ -220,7 +230,10 @@ def run(cfg: LanczosConfig) -> dict:
 
 
 def main(argv=None):
+    from lanczos_tpu.utils.compile_cache import use_checkout_cache
+
     args = build_parser().parse_args(argv)
+    use_checkout_cache()
     cfg = config_from_args(args)
     out = run(cfg)
     for k, v in out.items():

@@ -33,10 +33,10 @@ class LanczosConfig:
     breakdown_eps: float = 0.0  # rank-revealing deflation threshold
     replace_dead: bool = False  # adaptive restart of collapsed directions
     fused: bool | None = None   # None=auto: traffic-minimal fused recurrence
-    compensated: bool = False   # error-free-transform Gram accumulation
+    compensated: bool = False   # float64 Gram accumulation (fused path)
 
     # execution
-    operator: str = "stencil"  # stencil | pallas | ell
-    devices: int = 1           # >1: z-sharded distributed Pallas operator
+    operator: str = "stencil"  # stencil | stacked | ell
+    devices: int = 1           # >1: z-sharded distributed stacked operator
     validate: bool = True      # run the FDTD oracle comparison
     profile_dir: str | None = None  # capture a jax.profiler trace here

@@ -45,19 +45,10 @@ def operator_from_file(
 ):
     """Build a ready-to-use operator from a matrix file.
 
-    format: "ell" | "csr" | "coo" | "bsr" | "dia" (single-chip XLA
-    containers) | "windowed" (the Pallas band-window fast path for
-    assembled matrices) | "auto" (performance-ordered selection, see
-    below), or with `mesh` given: "halo" (banded row-sharded ELL,
-    ppermute halo exchange) | "windowed" (row-sharded Pallas fast path)
-    | "gather" (arbitrary sparsity, all-gather) | "auto".
-
-    "auto" picks by measured TPU kernel rates: a matrix whose nonzeros
-    lie on few distinct diagonals goes to DIA (gather-free shifted
-    slices, ~at the copy-bandwidth roofline); anything else banded
-    enough to plan goes to the windowed-ELL Pallas kernel; the gathered
-    ELL container is the last resort (XLA gathers do not map to TPU
-    tiles — orders of magnitude slower).
+    format: "ell" | "csr" | "coo" | "bsr" | "dia" (single-device XLA
+    containers) | "auto" (see `auto_operator`), or with `mesh` given:
+    "halo" / "ell" (banded row-sharded ELL, ppermute halo exchange, RCM
+    per `reorder`) | "gather" (arbitrary sparsity, all-gather) | "auto".
     """
     import jax.numpy as jnp
 
@@ -70,22 +61,12 @@ def operator_from_file(
 
     if mesh is not None:
         from lanczos_tpu.parallel import gather_sharded_ell, halo_sharded_ell
-        from lanczos_tpu.parallel.dist_windowed import halo_sharded_windowed
 
         if format in ("halo", "ell"):
             return halo_sharded_ell(a, mesh, dtype=dtype, reorder=reorder)
-        if format == "windowed":
-            return halo_sharded_windowed(
-                a, mesh, dtype=dtype, reorder=reorder
-            )
         if format == "gather":
             return gather_sharded_ell(a, mesh, dtype=dtype)
         raise ValueError(f"unknown distributed format {format!r}")
-
-    if format == "windowed":
-        from lanczos_tpu.ops.pallas.window_ell import windowed_from_scipy
-
-        return windowed_from_scipy(a, dtype=dtype, reorder=reorder)
 
     from lanczos_tpu.ops import formats as F
 
@@ -103,10 +84,12 @@ def operator_from_file(
 
 def auto_operator(a, *, dtype=None, mesh=None, reorder: str = "auto",
                   max_diags: int = 32):
-    """Performance-ordered operator selection for an assembled scipy
-    matrix (see `operator_from_file(format="auto")`): DIA when the
-    nonzeros lie on <= max_diags distinct diagonals, else the
-    windowed-ELL Pallas kernel, else gathered ELL."""
+    """Operator selection for an assembled scipy matrix: on one device, DIA
+    (gather-free shifted slices) when the nonzeros lie on <= max_diags
+    distinct diagonals, else gathered ELL (the reference's `ell::SpMM`
+    shape).  With a mesh: the halo-exchange row-sharded ELL (RCM-reordered
+    per `reorder` when that shortens the halo), else the all-gather
+    operator for sparsity no reordering makes banded."""
     import jax.numpy as jnp
 
     import scipy.sparse as sp
@@ -115,33 +98,20 @@ def auto_operator(a, *, dtype=None, mesh=None, reorder: str = "auto",
         dtype = jnp.float32
     a = a.tocsr() if sp.issparse(a) else sp.csr_matrix(np.asarray(a))
 
-    coo = a.tocoo()
-    ndiag = len(np.unique(coo.col.astype(np.int64) - coo.row)) if coo.nnz \
-        else 1
-
     if mesh is None:
         from lanczos_tpu.ops import formats as F
 
+        coo = a.tocoo()
+        ndiag = (
+            len(np.unique(coo.col.astype(np.int64) - coo.row)) if coo.nnz else 1
+        )
         if a.shape[0] == a.shape[1] and ndiag <= max_diags:
             return F.dia_from_scipy(a, dtype=dtype)
-        from lanczos_tpu.ops.pallas.window_ell import (
-            PlanError,
-            windowed_from_scipy,
-        )
+        return F.ell_from_scipy(a, dtype=dtype)
 
-        try:
-            return windowed_from_scipy(a, dtype=dtype, reorder=reorder)
-        except PlanError:
-            return F.ell_from_scipy(a, dtype=dtype)
-
-    from lanczos_tpu.ops.pallas.window_ell import PlanError
     from lanczos_tpu.parallel import gather_sharded_ell, halo_sharded_ell
-    from lanczos_tpu.parallel.dist_windowed import halo_sharded_windowed
 
     try:
-        return halo_sharded_windowed(a, mesh, dtype=dtype, reorder=reorder)
-    except (PlanError, ValueError):
-        try:
-            return halo_sharded_ell(a, mesh, dtype=dtype, reorder=reorder)
-        except ValueError:
-            return gather_sharded_ell(a, mesh, dtype=dtype)
+        return halo_sharded_ell(a, mesh, dtype=dtype, reorder=reorder)
+    except ValueError:
+        return gather_sharded_ell(a, mesh, dtype=dtype)

@@ -9,14 +9,14 @@ Same recurrence as the reference (`methods/block_lanczos.hpp:13-80`):
     alpha_j = 0.5 (W^T Q_1 + Q_1^T W);  W -= Q_1 alpha_j
 
 BLOCK-MAJOR convention: B has shape (p, *state_shape) — the block axis
-leads (TPU batch layout; minor state dims keep their (8,128) tiling),
-unlike the reference's column-major tall (n, p) matrices.  The state may
-be a flat (n,) vector or any richer operator state (e.g. the Pallas
-Maxwell stacked-field layout).
+leads (each block column is one contiguous state), unlike the
+reference's column-major tall (n, p) matrices.  The state may be a flat
+(n,) vector or any richer operator state (e.g. the stacked Maxwell
+field layout).
 
 All dense block math (Gram products `mm_tt`/`mm_tt2`, tall x small updates
 `mm_ts` — reference `kernels/mm_tt.hpp`, `mm_tt2.hpp`, `mm_ts.hpp`) is
-expressed as einsum/`dot_general` on the MXU; the per-iteration
+expressed as einsum/`dot_general` at precision HIGHEST; the per-iteration
 sqrtm/inv-sqrtm uses the in-graph Jacobi eigensolver (`ops/smalleig.py`)
 instead of the warp-level kernel (`kernels/my_sqrtm_cusolver.hpp`) or
 syevjBatched.
@@ -39,6 +39,16 @@ from lanczos_tpu.ops.precision import HIGHEST
 from lanczos_tpu.ops.operator import LinearOperator
 from lanczos_tpu.ops.smalleig import sqrtm_invsqrtm
 from lanczos_tpu.ops.tsqr import tsqr, tsqr_sharded
+
+
+def fused_min_bytes(p: int) -> int:
+    """Block-state bytes from which bare runs take the fused recurrence.
+
+    Per iteration on an H100 (700 W), fused vs materialized, Maxwell
+    stencil: p=1 at 0.35 MB 73.7 vs 39.7 us, 1.6 MB 35.7 vs 28.8 us,
+    6.4 MB 48.2 vs 45.9 us, 24 MB 142 vs 154 us, 99 MB 0.51 vs 0.57 ms;
+    p=4 at 1.4 MB 385 vs 408 us, 397 MB 2.37 vs 8.03 ms."""
+    return 16 * 1024 * 1024 if p == 1 else 1024 * 1024
 
 
 @jax.tree_util.register_dataclass
@@ -66,7 +76,7 @@ def _sym(g):
 
 
 def _gram(x, y):
-    """x^T y over the state axes -> (p, q) on the MXU (reference mm_tt /
+    """x^T y over the state axes -> (p, q) (reference mm_tt /
     mm_tt2 kernels); x: (p, *state), y: (q, *state)."""
     return jnp.einsum("p...,q...->pq", x, y, preferred_element_type=x.dtype, precision=HIGHEST)
 
@@ -156,18 +166,19 @@ def block_lanczos(
     if normalize not in ("sqrtm", "qr"):
         raise ValueError(f"unknown normalize mode {normalize!r}")
     # fused=None (auto): route reorth-free sqrtm single-device runs through
-    # the traffic-minimal path (block_lanczos_fused.py — 3 HBM passes per
-    # iteration instead of ~6 ops / 15 passes).  fused=False forces the
-    # reference-semantics materialized recurrence.
+    # the traffic-minimal path (block_lanczos_fused.py — 3 state passes per
+    # iteration instead of ~6 ops / 15 passes) once the block state reaches
+    # fused_min_bytes(p).  fused=False forces the reference-semantics
+    # materialized recurrence.
     fusable = (
         reorth == "none"
         and normalize == "sqrtm"
         and not replace_dead
         and getattr(a, "mesh", None) is None
     )
-    # fixed pallas-call costs (~1-2 ms/iteration) only amortize when the
-    # block-state traffic dominates: auto-gate on size
-    big_enough = b.size * jnp.dtype(b.dtype).itemsize >= 16 * 1024 * 1024
+    big_enough = (
+        b.size * jnp.dtype(b.dtype).itemsize >= fused_min_bytes(b.shape[0])
+    )
     if fused and not fusable:
         raise ValueError(
             "fused=True requires reorth='none', normalize='sqrtm', "
@@ -175,9 +186,9 @@ def block_lanczos(
         )
     if compensated and not fusable:
         raise ValueError(
-            "compensated=True (error-free-transform Gram accumulation) "
-            "is implemented on the fused path: requires reorth='none', "
-            "normalize='sqrtm' and a non-distributed operator"
+            "compensated=True (float64 Gram accumulation) is implemented "
+            "on the fused path: requires reorth='none', normalize='sqrtm' "
+            "and a non-distributed operator"
         )
     if compensated and fused is False:
         # ADVICE r4: --no-fused --compensated used to silently run fused

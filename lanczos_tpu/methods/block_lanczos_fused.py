@@ -1,15 +1,15 @@
 """Traffic-minimal ("fused") block Lanczos: the residual is never stored.
 
 The standard recurrence (`block_lanczos.py`, mirroring reference
-`methods/block_lanczos.hpp:13-80`) spends ~15 full HBM passes per
+`methods/block_lanczos.hpp:13-80`) spends ~15 full state passes per
 iteration across six separate ops (Gram, sqrtm-mix, SpMM, two fused
-subtracts, cross-Gram).  On TPU every one of those is memory-bound, so
-the iteration cost is pure traffic.  This path reorganizes the algebra
-so each iteration runs exactly THREE big-array passes:
+subtracts, cross-Gram).  At Lanczos block widths every one of those is
+memory-bound, so the iteration cost is traffic.  This path reorganizes
+the algebra so each iteration runs exactly THREE big-array passes:
 
   1. ``q_j   = block_mix(E, (q_{j-2}, q_{j-1}, v_{j-1}))``  (4S traffic)
   2. ``v_j   = A @ q_j``                                    (2S)
-  3. ``gram((q_j,), v_j, include_zz)``                      (2S)
+  3. ``block_grams((q_j,), v_j, include_zz)``               (2S)
 
 where v = A q is the RAW operator application and E is a (3p, p)
 coefficient matrix computed from p x p algebra only.  The key identities:
@@ -33,7 +33,7 @@ eps).  A is assumed numerically symmetric (it is the Lanczos
 prerequisite anyway).  For reorthogonalized / QR / adaptive runs use the
 standard path — those need the materialized basis.
 
-Measured (TPU v5e, Maxwell N=160, p=4): 18.4 ms -> ~7 ms per iteration.
+Time per iteration against the materialized path on the card: PERF.md.
 """
 
 from __future__ import annotations
@@ -44,11 +44,7 @@ import jax
 import jax.numpy as jnp
 
 from lanczos_tpu.ops.operator import LinearOperator
-from lanczos_tpu.ops.pallas.block_dense import (
-    block_grams,
-    block_grams_compensated,
-    block_mix,
-)
+from lanczos_tpu.ops.block_dense import block_grams, block_mix
 from lanczos_tpu.ops.precision import HIGHEST
 from lanczos_tpu.ops.smalleig import sqrtm_invsqrtm
 
@@ -95,12 +91,11 @@ def block_lanczos_fused(
     """Drop-in for `block_lanczos(..., reorth='none', normalize='sqrtm')`.
     Returns the same `BlockLanczosResult`.  See module docstring.
 
-    compensated=True computes every Gram product with the TwoProd/TwoSum
-    error-free-transform kernel (`block_grams_compensated`): the T
-    coefficients are then accurate to O(eps) of f32 instead of
-    O(eps*sqrt(n)) — the TPU-native replacement for the reference's
-    all-f64 block driver (`test_lanczos.cu:349-356`), at ~2-3x Gram
-    cost."""
+    compensated=True accumulates every Gram product, and runs the p x p
+    coefficient algebra, in float64 from the stored states (needs
+    jax_enable_x64): the T coefficients are then accurate to O(eps) of
+    the state dtype instead of O(eps*sqrt(n)) — the reference's all-f64
+    block driver accuracy (`test_lanczos.cu:349-356`) from f32 storage."""
     from lanczos_tpu.methods.block_lanczos import BlockLanczosResult
 
     p = b.shape[0]
@@ -115,24 +110,26 @@ def block_lanczos_fused(
     else:
         trace_at = trace_fn
 
-    cdt = jnp.promote_types(jnp.float32, dtype)
+    cdt = jnp.float64 if compensated else jnp.promote_types(jnp.float32, dtype)
 
     def sqrtm_inv(g):
         if p == 1:
             # scalar block: sqrtm is sqrt, pinv is a guarded reciprocal —
             # skip the (padded) Jacobi machinery entirely
-            s_ = jnp.sqrt(jnp.abs(g.astype(dtype)))
+            s_ = jnp.sqrt(jnp.abs(g.astype(cdt)))
             ok = s_ > 0
             return s_, jnp.where(ok, 1.0 / jnp.where(ok, s_, 1.0), 0.0)
         return sqrtm_invsqrtm(
-            g.astype(dtype),
+            g.astype(cdt),
             backend=eig_backend,
             sweeps=eig_sweeps,
             breakdown_eps=breakdown_eps,
         )
 
     tiny = jnp.asarray(jnp.finfo(dtype).tiny, dtype)
-    grams = block_grams_compensated if compensated else block_grams
+
+    def grams(xs, z):
+        return block_grams(xs, z, include_zz=True, acc_dtype=cdt)
 
     def norm_coeffs(gwn, dead):
         """(beta, inv, rcond, dead') from the residual Gram; freezes to
@@ -150,11 +147,11 @@ def block_lanczos_fused(
         return beta, inv, dead
 
     # ---- prologue: q0, v0 = A q0, alpha0 -------------------------------
-    gbb = grams((), b, include_zz=True)  # (p, p): one read of b
+    gbb = grams((), b)  # (p, p): one read of b
     beta0, inv0 = sqrtm_inv(gbb)
     q0 = block_mix(inv0.astype(cdt), (b,))
     v0 = a.mm(q0)
-    g2 = grams((q0,), v0, include_zz=True)  # [gram(q0,v0); gram(v0,v0)]
+    g2 = grams((q0,), v0)  # [gram(q0,v0); gram(v0,v0)]
     g_qv, g_vv = g2[:p], g2[p:]
     g_qq = _mm(_mm(inv0.T.astype(cdt), gbb), inv0.astype(cdt))
     alpha0 = _sym(g_qv.T).astype(dtype)
@@ -168,10 +165,10 @@ def block_lanczos_fused(
         beta_final, _ = sqrtm_inv(gwn)
         return BlockLanczosResult(
             alphas=alpha0[None],
-            betas=beta0[None],
+            betas=beta0.astype(dtype)[None],
             trace=trace0[None],
             basis=q0[None] if store_basis else None,
-            beta_final=beta_final,
+            beta_final=beta_final.astype(dtype),
             breakdown=jnp.asarray(False),
         )
 
@@ -184,7 +181,7 @@ def block_lanczos_fused(
     e1 = jnp.concatenate([-_mm(s2, inv1f), inv1f])  # (2p, p)
     q1 = block_mix(e1, (q0, v0))
     v1 = a.mm(q1)
-    g2 = grams((q1,), v1, include_zz=True)
+    g2 = grams((q1,), v1)
     m23, m33 = g2[:p], g2[p:]
     # 2p x 2p gram of (q0, v0) for the derived blocks
     gU = jnp.block([[g_qq, g_qv], [g_qv.T, g_vv]])
@@ -196,8 +193,6 @@ def block_lanczos_fused(
     m11 = g_qq
     alpha1 = _sym(m23.T - _mm(beta1.astype(cdt), m12)).astype(dtype)
     trace1 = trace_at(q1)
-
-    karr_dtype = cdt
 
     def gwn_from(M, s1, s2):
         m11, m12, m13, m22, m23, m33 = M
@@ -215,46 +210,22 @@ def block_lanczos_fused(
             + _mm(s2.T, _mm(m22, s2))
         )
 
-    # mono=True: the round-5 two-call aliased iteration (see
-    # benchmarks/probes/PROBES_R5.md) — block_mix writes q_j onto u1's
-    # dead buffer and the fused stencil+Gram kernel writes v_j onto u3's
-    # while streaming it for the m13 block; 7 state passes at the ~690
-    # GB/s aliased rate instead of ~8 passes at 330-633.  Donated
-    # buffers must keep stable scan-carry slots, which a single
-    # (u1,u2,u3)->(u2,q,v) rotation violates (XLA inserts defensive
-    # copies); two steps per scan body compose the rotation to identity.
-    mono = (
-        not store_basis
-        and not compensated
-        and p >= 2  # p=1 is fixed-cost-bound: measured 1.73 (3-call) vs
-        #             2.24 ms/iter (mono) at N=160 — the aliased rate
-        #             only pays off once state traffic dominates
-        and hasattr(a, "stencil_gram")
-        and a.supports_stencil_gram(p, dtype)
-    )
-
     def body_step(u1, u2, u3, M, alpha_prev, beta_prev, dead):
         m11, m12, m13, m22, m23, m33 = M
-        s1 = beta_prev.T.astype(karr_dtype)
-        s2 = alpha_prev.astype(karr_dtype)
+        s1 = beta_prev.T.astype(cdt)
+        s2 = alpha_prev.astype(cdt)
         gwn = gwn_from(M, s1, s2)
         beta_j, inv_j, dead = norm_coeffs(gwn, dead)
         invf = inv_j.astype(cdt)
         e = jnp.concatenate([-_mm(s1, invf), -_mm(s2, invf), invf])  # (3p,p)
         e = jnp.where(dead, jnp.zeros_like(e), e)
         gu2U = jnp.concatenate([m12.T, m22, m23], axis=1)  # (p, 3p)
-        if mono:
-            q_j = block_mix(e, (u1, u2, u3), inplace=True)
-            v_j, g3 = a.stencil_gram(q_j, u3)  # v_j aliases u3's buffer
-            m23n, m33n = g3[:p], g3[p : 2 * p]
-            m13n = g3[2 * p :]  # gram(u3, q_j): measured, not derived
-        else:
-            q_j = block_mix(e, (u1, u2, u3))
-            v_j = a.mm(q_j)
-            g2 = grams((q_j,), v_j, include_zz=True)
-            m23n, m33n = g2[:p], g2[p:]
-            gu3U = jnp.concatenate([m13.T, m23.T, m33], axis=1)
-            m13n = _mm(gu3U, e)  # gram(u2, v_j) = gram(u3, q_j)  [A sym.]
+        q_j = block_mix(e, (u1, u2, u3))
+        v_j = a.mm(q_j)
+        g2 = grams((q_j,), v_j)
+        m23n, m33n = g2[:p], g2[p:]
+        gu3U = jnp.concatenate([m13.T, m23.T, m33], axis=1)
+        m13n = _mm(gu3U, e)  # gram(u2, v_j) = gram(u3, q_j)  [A sym.]
         m12n = _mm(gu2U, e)  # gram(u2, q_j)
         Mfull = jnp.block(
             [[m11, m12, m13], [m12.T, m22, m23], [m13.T, m23.T, m33]]
@@ -272,33 +243,9 @@ def block_lanczos_fused(
     def body(carry, _):
         return body_step(*carry)
 
-    def body2(carry, _):
-        c1, o1 = body_step(*carry)
-        c2, o2 = body_step(*c1)
-        outs = jax.tree.map(lambda x, y: jnp.stack([x, y]), o1, o2)
-        return c2, outs
-
     M1 = (m11, m12, m13, m22, m23, m33)
     carry0 = (q0, q1, v1, M1, alpha1, beta1, dead)
-    if m > 2 and mono:
-        n2, rem = divmod(m - 2, 2)
-        carry, outs = carry0, None
-        if n2 > 0:
-            carry, outs2 = jax.lax.scan(body2, carry0, None, length=n2)
-            outs = jax.tree.map(
-                lambda x: x.reshape((2 * n2,) + x.shape[2:]), outs2
-            )
-        if rem:
-            carry, o_last = body_step(*carry)
-            o_last = jax.tree.map(lambda x: x[None], o_last)
-            outs = (
-                o_last
-                if outs is None
-                else jax.tree.map(
-                    lambda x, y: jnp.concatenate([x, y]), outs, o_last
-                )
-            )
-    elif m > 2:
+    if m > 2:
         carry, outs = jax.lax.scan(body, carry0, None, length=m - 2)
     else:
         carry, outs = carry0, None
@@ -308,13 +255,15 @@ def block_lanczos_fused(
         M_f, beta_f.T.astype(cdt), alpha_f.astype(cdt)
     )
     beta_final, _ = sqrtm_inv(gwn_f)
-    beta_final = jnp.where(dead_f, jnp.zeros_like(beta_final), beta_final)
+    beta_final = jnp.where(
+        dead_f, jnp.zeros_like(beta_final), beta_final
+    ).astype(dtype)
 
     if outs is not None:
         alphas_r, betas_r, traces_r = outs[0], outs[1], outs[2]
         alphas = jnp.concatenate([alpha0[None], alpha1[None], alphas_r])
         betas = jnp.concatenate(
-            [beta0[None], beta1.astype(dtype)[None], betas_r]
+            [beta0.astype(dtype)[None], beta1.astype(dtype)[None], betas_r]
         )
         trace = jnp.concatenate([trace0[None], trace1[None], traces_r])
         basis = (
@@ -324,7 +273,7 @@ def block_lanczos_fused(
         )
     else:
         alphas = jnp.stack([alpha0, alpha1])
-        betas = jnp.stack([beta0, beta1.astype(dtype)])
+        betas = jnp.stack([beta0.astype(dtype), beta1.astype(dtype)])
         trace = jnp.stack([trace0, trace1])
         basis = jnp.stack([q0, q1]) if store_basis else None
 

@@ -334,14 +334,8 @@ def fdtd_checkpointed(
 
     The operator is a jit ARGUMENT (not a closure constant — a closed-over
     assembled matrix would be re-embedded per compile, the failure mode
-    commit dc47c04 fixed in the benches), and dt is folded into operators
-    that support `scaled` (matching `methods/fdtd.py`: for a memory-bound
-    stencil the separate `dt *` pass costs a full extra state read+write
-    per step)."""
-    from lanczos_tpu.methods.fdtd import _maybe_fold_dt
-
+    commit dc47c04 fixed in the benches)."""
     dt = jnp.asarray(float(t_end) / nsteps, u0.dtype)
-    a, dt = _maybe_fold_dt(a, dt)
 
     start = 0
     u = u0

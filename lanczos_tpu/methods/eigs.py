@@ -38,18 +38,11 @@ def ritz_residuals(a, vals: jax.Array, vecs: jax.Array) -> jax.Array:
 
     vals: (k,); vecs: (n, k) columns.  Returns (k,).
     """
-    k = vals.shape[0]
     ys = vecs.T  # block-major (k, n)
-    kp = -(-k // 8) * 8
-    if kp != k:  # padded-state operators need 8-row block states
-        ys = jnp.concatenate(
-            [ys, jnp.zeros((kp - k,) + ys.shape[1:], ys.dtype)]
-        )
-    ays = a.mm(ys)[:k]
-    r = ays - vals[:, None] * ys[:k]
+    r = a.mm(ys) - vals[:, None] * ys
     tiny = jnp.finfo(vecs.dtype).tiny
     return jnp.linalg.norm(r, axis=1) / (
-        jnp.abs(vals) * jnp.linalg.norm(ys[:k], axis=1) + tiny
+        jnp.abs(vals) * jnp.linalg.norm(ys, axis=1) + tiny
     )
 
 

@@ -2,7 +2,8 @@
 
 u(T_end) integrated as u += dt * A u for Nsteps; the physics oracle the
 reference validates Lanczos-expm against (test_lanczos.cu:118-123, :294-301).
-Implemented as `lax.fori_loop` so the million-step run stays on device.
+Implemented as `lax.fori_loop` so the million-step run stays on device;
+XLA fuses the axpy into the operator application.
 """
 
 from __future__ import annotations
@@ -15,45 +16,15 @@ import jax.numpy as jnp
 from lanczos_tpu.ops.operator import LinearOperator
 
 
-def _maybe_fold_dt(a, dt):
-    """Fold dt into the operator's weights when it supports `scaled`
-    (Pallas stencil operators): u += (dt*A) u is then a single fused
-    kernel + axpy instead of kernel + scale + axpy — for the memory-bound
-    stencil the separate `dt *` pass costs a full extra read+write of the
-    state per step."""
-    if hasattr(a, "scaled"):
-        return a.scaled(dt), jnp.ones((), dt.dtype)
-    return a, dt
-
-
-def _inplace_step(a, u0):
-    """The round-5 fast path: the FDTD update is genuinely destructive
-    (u is dead after each step), so operators that support it run
-    u <- u + (dt A) u as ONE aliased Pallas pass (~680 GB/s on this
-    chip vs ~330 for the two-pass kernel+axpy — see
-    `ops/pallas/stencil_fdtd.py`).  Returns None when unsupported."""
-    p = 1 if u0.ndim == 3 else u0.shape[0]
-    if (
-        hasattr(a, "fdtd_step")
-        and getattr(a, "supports_fdtd_inplace", lambda *_: False)(p)
-    ):
-        return lambda _, u: a.fdtd_step(u)
-    return None
-
-
 @partial(jax.jit, static_argnames=("nsteps",))
 def fdtd_vector(
     a: LinearOperator, u0: jax.Array, nsteps: int, t_end: float
 ) -> jax.Array:
     """Returns u(T_end) (full vector; index with lc at the call site)."""
     dt = jnp.asarray(t_end / nsteps, u0.dtype)
-    a, dt = _maybe_fold_dt(a, dt)
 
-    # dt already folded into `a` when the operator supports .scaled
-    step = _inplace_step(a, u0) if hasattr(a, "scaled") else None
-    if step is None:
-        def step(_, u):
-            return u + dt * a.mv(u)
+    def step(_, u):
+        return u + dt * a.mv(u)
 
     return jax.lax.fori_loop(0, nsteps, step, u0)
 
@@ -65,12 +36,8 @@ def fdtd_block(
     """Block version (reference `ftdt_block`, fdtd.hpp:34): U += dt * A U.
     U is BLOCK-MAJOR (p, n)."""
     dt = jnp.asarray(t_end / nsteps, u0.dtype)
-    a, dt = _maybe_fold_dt(a, dt)
 
-    # dt already folded into `a` when the operator supports .scaled
-    step = _inplace_step(a, u0) if hasattr(a, "scaled") else None
-    if step is None:
-        def step(_, u):
-            return u + dt * a.mm(u)
+    def step(_, u):
+        return u + dt * a.mm(u)
 
     return jax.lax.fori_loop(0, nsteps, step, u0)

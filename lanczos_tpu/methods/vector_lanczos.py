@@ -1,7 +1,7 @@
 """Single-vector Lanczos tridiagonalization as a `lax.scan`.
 
 Same three-term recurrence as the reference (`methods/vector_lanczos.hpp:9-67`)
-with the TPU-native execution model: alpha/beta live in the scan carry on
+with the accelerator execution model: alpha/beta live in the scan carry on
 device (the reference's BLAS path syncs a host scalar per dot/nrm2,
 `vector_lanczos.hpp:84,96` — SURVEY.md §2 "Device<->host scalar sync" row).
 
@@ -58,7 +58,7 @@ def _norm(x):
 
 def _cgs2(wv, basis, valid_mask):
     """Twice-iterated classical Gram-Schmidt: w -= Q (Q^T w), masked to the
-    currently valid basis rows.  Two MXU-shaped products per pass; works
+    currently valid basis rows.  Two matmul-shaped products per pass; works
     for any state shape (basis is (m, *state))."""
     for _ in range(2):
         coeffs = jnp.einsum("k...,...->k", basis, wv, precision=HIGHEST)
@@ -85,21 +85,20 @@ def vector_lanczos(
     fused: bool | None = None,
 ) -> VectorLanczosResult:
     """b may have ANY state shape the operator accepts (a flat (n,) vector
-    for matrix formats; e.g. the stacked-field layout for the Pallas
+    for matrix formats; e.g. the stacked-field layout of the stacked
     Maxwell operator).  `trace_fn(q) -> scalar` overrides the default
     receiver extraction (flat index lc) for non-flat states.
 
-    fused=None (auto): bare-recurrence single-device runs route through
-    the traffic-minimal fused recurrence at block width 1
-    (`block_lanczos_fused.py` — 3 HBM passes per iteration instead of
-    ~6; measured 2.65 -> ~1.8 ms/iter on the Maxwell N=160 state).
-    fused=False forces the classic materialized scan."""
+    fused=None (auto): bare-recurrence single-device runs whose state
+    reaches fused_min_bytes(1) route through the traffic-minimal fused
+    recurrence at block width 1 (`block_lanczos_fused.py` — 3 state
+    passes per iteration instead of ~6).  fused=False forces the classic
+    materialized scan."""
     if reorth not in ("none", "full", "selective"):
         raise ValueError(f"unknown reorth mode {reorth!r}")
-    # the fused path's three pallas calls carry ~1-2 ms of fixed cost per
-    # iteration — a win only when state traffic dominates (auto-dispatch
-    # gates on state size; fused=True forces it regardless)
-    big_enough = b.size * jnp.dtype(b.dtype).itemsize >= 16 * 1024 * 1024
+    from lanczos_tpu.methods.block_lanczos import fused_min_bytes
+
+    big_enough = b.size * jnp.dtype(b.dtype).itemsize >= fused_min_bytes(1)
     fusable = (
         reorth == "none"
         and breakdown_tol == 0.0

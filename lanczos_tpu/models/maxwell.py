@@ -7,13 +7,13 @@ such that ``A = D @ diag(w)`` is symmetric.  The reference assembles twelve
 Kronecker-product curl blocks into one ELL matrix on the host and does a
 gathered SpMV on the GPU.
 
-TPU-native re-design: every block of ``A`` is ``sign * kron(F3, F2, F1)``
-with exactly one bidiagonal 1-D factor (a scaled forward/backward
-difference) and two diagonal factors.  So ``A @ u`` is a *separable stencil*
-on six 3-D fields: two shifted-slice multiply-adds per block, no gather, no
-index plane — contiguous VPU work with ~2.4x less HBM traffic than the
-reference's ELL format (no 4-byte index per nonzero, and the separable
-coefficients are O(N) instead of O(N^3)).
+Re-design: every block of ``A`` is ``sign * kron(F3, F2, F1)`` with
+exactly one bidiagonal 1-D factor (a scaled forward/backward difference)
+and two diagonal factors.  So ``A @ u`` is a *separable stencil* on six
+3-D fields: two shifted-slice multiply-adds per block, no gather, no index
+plane — contiguous elementwise work with ~2.4x less memory traffic than
+the reference's ELL format (no 4-byte index per nonzero, and the
+separable coefficients are O(N) instead of O(N^3)).
 
 Two implementations are provided and cross-validated in tests:
   * `maxwell_scipy` / `assemble_maxwell_A`: explicit sparse assembly
@@ -210,17 +210,10 @@ class MaxwellOperator(LinearOperator):
     def _apply(self, u):
         """Each input component is padded ONCE (all three spatial axes by
         one); every tap is then a static slice of that padded array, and
-        each output component is a single fused 4-term multiply-add.
-
-        TPU performance notes (measured on v5e):
-          * the separable weights multiply the FULL-SIZE tap one axis at a
-            time — forming the 3-D coefficient `wz*wy*wx` first creates
-            lane-dim-1 broadcast intermediates that Mosaic handles ~100x
-            slower than a fused chain of full-size x small multiplies;
-          * callers must pass the operator as a jit ARGUMENT (all library
-            methods do): closing over it turns the tap arrays into
-            embedded constants, which this backend re-uploads per call.
-        """
+        each output component is a single fused 4-term multiply-add
+        (XLA fuses the pads, slices and weights into the output loop).
+        Callers pass the operator as a jit ARGUMENT (all library methods
+        do): closing over it would embed the tap arrays as constants."""
         xs = self._split(u)
         extra = u.shape[1:]
         nd_extra = len(extra)
@@ -370,32 +363,3 @@ def maxwell_ell_operator(nx: int, ny: int, nz: int, row_pad: int = 8):
                               row_pad=row_pad)
     data, idx = packed
     return EllMatrix(jnp.asarray(data), jnp.asarray(idx), n, n)
-
-
-def maxwell_interleave_perm(nx: int, ny: int, nz: int) -> np.ndarray:
-    """Symmetric z-interleaved ordering for the assembled Maxwell operator:
-    unknowns sorted by (z, component, y, x) instead of the component-major
-    natural layout.
-
-    The natural layout puts each field component in its own contiguous
-    block, so the curl coupling (E rows read H columns and vice versa,
-    reference `build_A_ell.hpp:176-212` D = [0 Dh; De 0]) reaches ~n/2
-    away — hopeless for any band-window kernel.  Plain RCM restores a
-    small bandwidth but scrambles rows so the k-th nonzeros of adjacent
-    rows land in different 128-blocks (measured ~34 planes/chunk in the
-    windowed-ELL packing).  This analytic interleave gives BOTH: the
-    band collapses to ~2 z-slabs AND 128 consecutive rows are one
-    component's consecutive (y, x) run, so their k-th nonzeros share one
-    window (planes/chunk == ELL width).  Use as
-    `windowed_from_ell(ell, perm=maxwell_interleave_perm(...))`.
-    """
-    shapes = maxwell_component_shapes(nx, ny, nz)
-    zs, cs, ys, xs = [], [], [], []
-    for c, (sz, sy, sx) in enumerate(shapes):
-        z, y, x = np.indices((sz, sy, sx)).reshape(3, -1)
-        zs.append(z)
-        ys.append(y)
-        xs.append(x)
-        cs.append(np.full(z.shape, c, np.int64))
-    key = [np.concatenate(a) for a in (xs, ys, cs, zs)]
-    return np.lexsort(key).astype(np.int64)  # last key (z) is primary

@@ -39,7 +39,7 @@ def random_vector_b(n_rows: int, seed: int = 0, dtype=np.float64) -> np.ndarray:
 def gaussian_matrix_B(n: int, n_rows: int, n_col: int, dtype=np.float64) -> np.ndarray:
     """n_col shifted Gaussians (shift = 0.1*(i+1)), build_ell_utils.hpp:252.
 
-    Block-major (n_col, n_rows): the TPU-native block convention puts the
+    Block-major (n_col, n_rows): the library's block convention puts the
     block axis first (leading batch dim), unlike the reference's
     column-major tall matrices.
     """

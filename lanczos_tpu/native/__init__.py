@@ -83,16 +83,6 @@ def load() -> ctypes.CDLL | None:
             i64p, f64p, i64p, f64p, i64p, f64p, i64p, i64p, i64p,
             f32p, i32p,
         ]
-        lib.window_pack_count.argtypes = [ctypes.c_int64, i64p, i64p]
-        lib.window_pack_count.restype = ctypes.c_int64
-        lib.window_pack_fill_f32.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, i64p, i64p, f32p,
-            f32p, i32p, i64p,
-        ]
-        lib.window_pack_fill_f64.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, i64p, i64p, f64p,
-            f64p, i32p, i64p,
-        ]
         _lib = lib
         return _lib
 
@@ -148,60 +138,6 @@ def halo_ell_from_csr(indptr, indices, data, n_rows, rows_pad, width,
         _p(out, ctypes.c_float), _p(idx_out, ctypes.c_int32),
     )
     return out, idx_out
-
-
-def _window_dtype_fill(lib, dtype):
-    npdt = np.dtype(dtype)
-    if npdt == np.float32:
-        return lib.window_pack_fill_f32, ctypes.c_float
-    if npdt == np.float64:
-        return lib.window_pack_fill_f64, ctypes.c_double
-    return None, None
-
-
-def window_pack_count(indptr, indices, n_rows, dtype):
-    """Pass 1 of the windowed-ELL plane packer (bit-compatible with
-    `ops.pallas.window_ell._pack_planes`'s NumPy planner): the planes-
-    per-chunk count, or None if the native library is unavailable or the
-    dtype is unsupported.  Lets the caller enforce its ppc cap BEFORE
-    the (C, ppc, 128) outputs are allocated."""
-    lib = load()
-    if lib is None or _window_dtype_fill(lib, dtype)[0] is None:
-        return None
-    indptr = np.ascontiguousarray(indptr, np.int64)
-    indices = np.ascontiguousarray(indices, np.int64)
-    ppc = int(lib.window_pack_count(
-        n_rows, _p(indptr, ctypes.c_int64), _p(indices, ctypes.c_int64)
-    ))
-    return max(ppc, 1)
-
-
-def window_pack_fill(indptr, indices, data, n_rows, ppc):
-    """Pass 2: fill (planes_data (C, ppc, 128), planes_lidx i32,
-    planes_fabs (C, ppc) i64) with ppc from `window_pack_count`.  Two
-    OpenMP passes instead of O(n*width) fancy indexing — the 10M-row
-    plan drops from minutes to seconds.  None if native unavailable."""
-    lib = load()
-    if lib is None:
-        return None
-    fill, ctyp = _window_dtype_fill(lib, data.dtype)
-    if fill is None:
-        return None
-    indptr = np.ascontiguousarray(indptr, np.int64)
-    indices = np.ascontiguousarray(indices, np.int64)
-    data = np.ascontiguousarray(data)
-    n_chunks = -(-n_rows // 128) if n_rows else 0
-    planes_dat = np.empty((n_chunks, ppc, 128), data.dtype)
-    planes_lidx = np.empty((n_chunks, ppc, 128), np.int32)
-    planes_fabs = np.empty((n_chunks, ppc), np.int64)
-    fill(
-        n_rows, ppc,
-        _p(indptr, ctypes.c_int64), _p(indices, ctypes.c_int64),
-        _p(data, ctyp),
-        _p(planes_dat, ctyp), _p(planes_lidx, ctypes.c_int32),
-        _p(planes_fabs, ctypes.c_int64),
-    )
-    return planes_dat, planes_lidx, planes_fabs
 
 
 def maxwell_ell(descs, arrays, comp_shapes, n_rows, rows_pad):

@@ -1,6 +1,6 @@
 // Native host-side assembly/packing engine.
 //
-// TPU-native counterpart of the reference's C++ host layer: operator
+// Counterpart of the reference's C++ host layer: operator
 // assembly (reference `source/matrix_a/build_A_ell.hpp:10-255`), ELL
 // packing and layout transforms (reference `Ell_matrix::change_order` /
 // `padding`, `source/objects/ell_matrix.hpp:362-448`).  The JAX side
@@ -171,156 +171,6 @@ void maxwell_ell_f32(
             }
         }
     }
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// Windowed-ELL plane packing (the planner of
-// `lanczos_tpu.ops.pallas.window_ell._pack_planes`, bit-compatible).
-//
-// Two passes over the CSR matrix, parallel over 128-row chunks:
-//   pass 1 (window_pack_count): per-chunk plane count -> caller takes the
-//     max as ppc and allocates (C, ppc, 128) outputs;
-//   pass 2 (window_pack_fill_*): fill planes_{data,lidx,fabs}.
-// A plane holds at most one nonzero per lane (row % 128), all of whose
-// column indices fall in one 256-element, 128-aligned window; the k-th
-// nonzeros of a chunk are split into groups by a stable-sorted greedy
-// scan over their 128-block ids (same grouping as the NumPy planner).
-// ---------------------------------------------------------------------------
-
-namespace {
-
-constexpr int64_t kLanes = 128;
-
-struct LaneF { int64_t f; int32_t lane; };
-
-// enumerate the groups of the k-th nonzeros of chunk c; calls `emit`
-// with (group_lanes, group_count, f_base) per group.  `cols[lane]` is
-// the column of lane's k-th nnz (or -1 if the row has < k+1 nnz).
-template <typename Emit>
-inline void for_each_group(const int64_t* cols, Emit&& emit) {
-    LaneF buf[kLanes];
-    int cnt = 0;
-    int64_t fmin = INT64_MAX, fmax = -1;
-    for (int32_t l = 0; l < kLanes; ++l) {
-        if (cols[l] < 0) continue;
-        int64_t f = cols[l] >> 7;
-        buf[cnt++] = {f, l};
-        fmin = std::min(fmin, f);
-        fmax = std::max(fmax, f);
-    }
-    if (!cnt) return;
-    if (fmax <= fmin + 1) {  // single window: lanes stay in lane order
-        emit(buf, cnt, fmin);
-        return;
-    }
-    std::stable_sort(buf, buf + cnt,
-                     [](const LaneF& a, const LaneF& b) { return a.f < b.f; });
-    int start = 0;
-    while (start < cnt) {
-        int64_t base = buf[start].f;
-        int end = start;
-        while (end < cnt && buf[end].f <= base + 1) ++end;
-        emit(buf + start, end - start, base);
-        start = end;
-    }
-}
-
-// cols[lane] of the k-th nnz for each lane of chunk c (-1 if absent)
-inline void gather_k(const int64_t* indptr, const int64_t* indices,
-                     int64_t n_rows, int64_t r0, int64_t k, int64_t* cols) {
-    for (int64_t l = 0; l < kLanes; ++l) {
-        int64_t r = r0 + l;
-        if (r < n_rows && indptr[r] + k < indptr[r + 1])
-            cols[l] = indices[indptr[r] + k];
-        else
-            cols[l] = -1;
-    }
-}
-
-template <typename T>
-void window_pack_fill(
-    int64_t n_rows, int64_t ppc,
-    const int64_t* indptr, const int64_t* indices, const T* data,
-    T* planes_dat, int32_t* planes_lidx, int64_t* planes_fabs)
-{
-    int64_t n_chunks = (n_rows + kLanes - 1) / kLanes;
-#pragma omp parallel for schedule(dynamic, 8)
-    for (int64_t c = 0; c < n_chunks; ++c) {
-        T* dat = planes_dat + c * ppc * kLanes;
-        int32_t* lid = planes_lidx + c * ppc * kLanes;
-        int64_t* fab = planes_fabs + c * ppc;
-        for (int64_t i = 0; i < ppc * kLanes; ++i) { dat[i] = T(0); lid[i] = 0; }
-        for (int64_t i = 0; i < ppc; ++i) fab[i] = -1;
-
-        int64_t r0 = c * kLanes;
-        int64_t width_c = 0;
-        for (int64_t l = 0; l < kLanes && r0 + l < n_rows; ++l)
-            width_c = std::max(width_c, indptr[r0 + l + 1] - indptr[r0 + l]);
-
-        int64_t slot = 0;
-        int64_t cols[kLanes];
-        for (int64_t k = 0; k < width_c; ++k) {
-            gather_k(indptr, indices, n_rows, r0, k, cols);
-            for_each_group(cols, [&](const LaneF* g, int n, int64_t fa) {
-                fab[slot] = fa;
-                for (int i = 0; i < n; ++i) {
-                    int32_t l = g[i].lane;
-                    int64_t r = r0 + l;
-                    dat[slot * kLanes + l] = data[indptr[r] + k];
-                    lid[slot * kLanes + l] =
-                        static_cast<int32_t>(cols[l] - (fa << 7));
-                }
-                ++slot;
-            });
-        }
-    }
-}
-
-}  // namespace
-
-extern "C" {
-
-// pass 1: per-chunk plane counts; returns max (= ppc)
-int64_t window_pack_count(
-    int64_t n_rows, const int64_t* indptr, const int64_t* indices)
-{
-    int64_t n_chunks = (n_rows + kLanes - 1) / kLanes;
-    int64_t ppc = 0;
-#pragma omp parallel for schedule(dynamic, 8) reduction(max:ppc)
-    for (int64_t c = 0; c < n_chunks; ++c) {
-        int64_t r0 = c * kLanes;
-        int64_t width_c = 0;
-        for (int64_t l = 0; l < kLanes && r0 + l < n_rows; ++l)
-            width_c = std::max(width_c, indptr[r0 + l + 1] - indptr[r0 + l]);
-        int64_t slots = 0;
-        int64_t cols[kLanes];
-        for (int64_t k = 0; k < width_c; ++k) {
-            gather_k(indptr, indices, n_rows, r0, k, cols);
-            for_each_group(cols, [&](const LaneF*, int, int64_t) { ++slots; });
-        }
-        ppc = std::max(ppc, slots);
-    }
-    return ppc;
-}
-
-void window_pack_fill_f32(
-    int64_t n_rows, int64_t ppc,
-    const int64_t* indptr, const int64_t* indices, const float* data,
-    float* planes_dat, int32_t* planes_lidx, int64_t* planes_fabs)
-{
-    window_pack_fill<float>(n_rows, ppc, indptr, indices, data,
-                            planes_dat, planes_lidx, planes_fabs);
-}
-
-void window_pack_fill_f64(
-    int64_t n_rows, int64_t ppc,
-    const int64_t* indptr, const int64_t* indices, const double* data,
-    double* planes_dat, int32_t* planes_lidx, int64_t* planes_fabs)
-{
-    window_pack_fill<double>(n_rows, ppc, indptr, indices, data,
-                             planes_dat, planes_lidx, planes_fabs);
 }
 
 }  // extern "C"

@@ -1,12 +1,11 @@
 """Sparse matrix containers as JAX pytrees.
 
-TPU-native re-design of the reference's single container
+Re-design of the reference's single container
 (`source/objects/ell_matrix.hpp`): instead of one CUDA ELL class with a
 `change_order(4)` float4 re-tiling trick (`ell_matrix.hpp:362`), we provide
-ELL / CSR / COO / BSR / DIA pytrees whose SpMV/SpMM run as XLA ops (gather +
-segment-sum map well onto the VPU; BSR block products onto the MXU).  Rows
-are padded to multiples of the (8,128) float32 tile so every kernel sees
-static, tile-aligned shapes.
+ELL / CSR / COO / BSR / DIA pytrees whose SpMV/SpMM run as XLA ops
+(gathers + segment sums; BSR block products as one batched einsum).  Rows
+are padded to a multiple of ROW_TILE so every kernel sees static shapes.
 
 The padding convention is: padded rows have `data == 0` and column index 0,
 so gathered products contribute exactly zero — the analogue of the
@@ -27,7 +26,7 @@ import numpy as np
 
 from lanczos_tpu.ops.operator import LinearOperator
 
-ROW_TILE = 8  # float32 sublane tile; callers may pad more aggressively.
+ROW_TILE = 8  # row padding granule; callers may pad more aggressively.
 
 
 def _round_up(x: int, m: int) -> int:
@@ -143,6 +142,29 @@ class EllMatrix(LinearOperator):
         return cls(children[0], children[1], *aux)
 
 
+def _ell_planes(a, rows_pad: int, width: int, dtype, col_shift=None):
+    """Padded (rows_pad, width) ELL value/index planes of a CSR matrix
+    (rows longer than width are truncated; pad slots hold data 0, index
+    0).  col_shift: optional per-row offset subtracted from the column
+    indices (row-local windows of the sharded operators)."""
+    n = a.shape[0]
+    per_row = np.diff(a.indptr)
+    rows = np.repeat(np.arange(n, dtype=np.int64), per_row)
+    slot = np.arange(a.nnz, dtype=np.int64) - np.repeat(
+        a.indptr[:-1].astype(np.int64), per_row
+    )
+    keep = slot < width
+    rows, slot = rows[keep], slot[keep]
+    cols = a.indices[keep].astype(np.int64)
+    if col_shift is not None:
+        cols = cols - col_shift[rows]
+    data = np.zeros((rows_pad, width), np.dtype(dtype))
+    idx = np.zeros((rows_pad, width), np.int32)
+    data[rows, slot] = a.data[keep]
+    idx[rows, slot] = cols
+    return data, idx
+
+
 def ell_from_scipy(a, dtype=jnp.float32, row_pad: int = ROW_TILE, width: int | None = None) -> EllMatrix:
     a = _as_2d_scipy(a).tocsr()
     a.sum_duplicates()
@@ -160,13 +182,7 @@ def ell_from_scipy(a, dtype=jnp.float32, row_pad: int = ROW_TILE, width: int | N
     if packed is not None:
         data, idx = packed
     else:  # pure-NumPy fallback (native toolchain unavailable)
-        data = np.zeros((rows_pad, w), dtype=np.dtype(dtype))
-        idx = np.zeros((rows_pad, w), dtype=np.int32)
-        for i in range(n):
-            lo, hi = a.indptr[i], a.indptr[i + 1]
-            k = hi - lo
-            data[i, :k] = a.data[lo:hi]
-            idx[i, :k] = a.indices[lo:hi]
+        data, idx = _ell_planes(a, rows_pad, w, dtype)
     return EllMatrix(jnp.asarray(data), jnp.asarray(idx), n, m)
 
 
@@ -250,9 +266,9 @@ def coo_from_scipy(a, dtype=jnp.float32, nnz_pad: int = 128) -> CooMatrix:
 class CsrMatrix(LinearOperator):
     """CSR with an explicit row-id plane for segment reductions.
 
-    XLA has no native sparse row-pointer kernel; the TPU-friendly execution
-    is gather + `segment_sum`, so we carry both `indptr` (interop) and the
-    expanded `row_ids` (compute path).
+    XLA has no native sparse row-pointer kernel; the execution is gather +
+    `segment_sum`, so we carry both `indptr` (interop) and the expanded
+    `row_ids` (compute path).
     """
 
     indptr: jax.Array  # (n_rows_true + 1,) int32
@@ -335,10 +351,8 @@ def csr_from_scipy(a, dtype=jnp.float32, nnz_pad: int = 128) -> CsrMatrix:
 class BsrMatrix(LinearOperator):
     """Block-sparse rows in BLOCK-ELL layout: every block-row is padded to
     the same number of blocks `w`, so y is a fixed-width SUM over block
-    slots — no `segment_sum` scatter (scatters do not map to TPU tiles;
-    the scatter-based first cut measured ~2e8 nnz/s vs ~1e10 for this
-    layout).  Block products are one batched einsum (MXU for bs >= 8),
-    replacing the reference's scalar row loops."""
+    slots — no `segment_sum` scatter.  Block products are one batched
+    einsum, replacing the reference's scalar row loops."""
 
     data: jax.Array  # (nbr, w, bs, bs)
     block_cols: jax.Array  # (nbr, w) int32 — block-column index (0 padded)
@@ -414,101 +428,7 @@ class BsrMatrix(LinearOperator):
         return cls(*children, *aux)
 
 
-@jax.tree_util.register_pytree_node_class
-@dataclasses.dataclass(frozen=True)
-class BsrWindowedOperator(LinearOperator):
-    """BSR-format facade over the windowed-ELL Pallas kernel.
-
-    VERDICT r4 #5 asked for a real fast path at block_size 8 (BASELINE
-    config 3).  Measurement shows a dedicated block-ELL Pallas kernel
-    would duplicate the windowed kernel's plane structure (a bs x bs
-    block contributes bs planes either way) and could only save the
-    index bytes the int8 lidx already cut to ~1 B/nnz — so conversion
-    to the windowed layout IS the fast path: ~15-20x the einsum-BSR's
-    gather-bound throughput, and for point matrices forced into blocks
-    it also skips the 5-22x zero fill-in entirely (the windowed plan
-    packs the TRUE nonzeros).
-
-    Drop-in LinearOperator in the ORIGINAL row ordering (any internal
-    RCM permutation is applied/undone at the call boundary)."""
-
-    base: "object"  # WindowedEllMatrix
-    bs: int
-
-    @property
-    def shape(self):
-        return self.base.shape
-
-    @property
-    def dtype(self):
-        return self.base.dtype
-
-    @property
-    def block_size(self) -> int:
-        return self.bs
-
-    @property
-    def nnz(self) -> int:
-        """TRUE stored nonzeros (no block fill-in)."""
-        return self.base.nnz
-
-    def mv(self, x: jax.Array) -> jax.Array:
-        return self.mm(x[None, :])[0]
-
-    def mm(self, X: jax.Array) -> jax.Array:
-        y = self.base.mm(self.base.permute(X))
-        n = self.base.shape[0]
-        if y.shape[-1] != n:
-            y = y[..., :n]
-        return self.base.unpermute(y)
-
-    def to_dense(self) -> jax.Array:
-        d = self.base.to_dense()  # P A P^T
-        if self.base.is_permuted:
-            p = self.base.perm
-            inv = jnp.zeros_like(p).at[p].set(
-                jnp.arange(p.shape[0], dtype=p.dtype))
-            d = d[inv][:, inv]
-        return d
-
-    def tree_flatten(self):
-        return (self.base,), (self.bs,)
-
-    @classmethod
-    def tree_unflatten(cls, aux, children):
-        return cls(children[0], *aux)
-
-
-def bsr_from_scipy(a, block_size: int = 8, dtype=jnp.float32,
-                   engine: str = "auto"):
-    """engine='windowed' routes compute through the windowed-ELL Pallas
-    kernel (`BsrWindowedOperator` — the fast path); 'einsum' keeps the
-    gather+einsum `BsrMatrix` (reference-semantics container, also the
-    CPU-friendly path); 'auto' tries windowed and falls back."""
-    if engine not in ("auto", "windowed", "einsum"):
-        raise ValueError(f"unknown engine={engine!r}")
-    if engine == "auto" and np.dtype(dtype) != np.float32:
-        # the windowed kernel accumulates in f32; f64 BSR keeps the
-        # exact einsum path (the CPU-oracle role)
-        engine = "einsum"
-    if engine in ("auto", "windowed"):
-        from lanczos_tpu.ops.pallas.window_ell import (
-            PlanError,
-            windowed_from_scipy,
-        )
-
-        try:
-            base = windowed_from_scipy(
-                _as_2d_scipy(a).tocsr().astype(np.dtype(dtype))
-            )
-            return BsrWindowedOperator(base, block_size)
-        except PlanError:
-            if engine == "windowed":
-                raise
-    return _bsr_einsum_from_scipy(a, block_size, dtype)
-
-
-def _bsr_einsum_from_scipy(
+def bsr_from_scipy(
     a, block_size: int = 8, dtype=jnp.float32
 ) -> BsrMatrix:
     import scipy.sparse as sp
@@ -550,9 +470,9 @@ class DiaMatrix(LinearOperator):
     """Diagonal-offset storage: y = sum_d data[d] * shift(x, offsets[d]).
 
     Offsets are static pytree aux-data, so each shifted read lowers to a
-    static slice of a zero-padded x — no gather at all.  This is the
-    TPU-native answer to the reference's `change_order(4)` vectorized-load
-    trick (`ell_matrix.hpp:362`): contiguity by construction.
+    static slice of a zero-padded x — no gather at all.  This answers the
+    reference's `change_order(4)` vectorized-load trick
+    (`ell_matrix.hpp:362`): contiguity by construction.
     """
 
     data: jax.Array  # (ndiag, n_rows_pad)
@@ -627,7 +547,6 @@ def dia_from_scipy(a, dtype=jnp.float32, row_pad: int = ROW_TILE) -> DiaMatrix:
     offs = np.unique(a.col.astype(np.int64) - a.row.astype(np.int64))
     npad = _round_up(n, row_pad)
     data = np.zeros((len(offs), npad), np.dtype(dtype))
-    off_pos = {int(o): i for i, o in enumerate(offs)}
-    for r, c, v in zip(a.row, a.col, a.data):
-        data[off_pos[int(c) - int(r)], r] += v
+    pos = np.searchsorted(offs, a.col.astype(np.int64) - a.row)
+    data[pos, a.row] = a.data  # (diagonal, row) pairs are unique
     return DiaMatrix(jnp.asarray(data), tuple(int(o) for o in offs), n, m)

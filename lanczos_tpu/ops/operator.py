@@ -45,8 +45,8 @@ class LinearOperator(abc.ABC):
     def mm(self, X: jax.Array) -> jax.Array:
         """Block product, BLOCK-MAJOR: X: (p, *state_shape) -> same.
 
-        The block axis leads (TPU batch convention — minor dims keep their
-        (8,128) tiling), unlike the reference's column-major tall
+        The block axis leads (each block column is one contiguous
+        state), unlike the reference's column-major tall
         matrices (`dense_matrix.hpp:11`).  Default: vmap of mv over the
         leading axis; formats override with a fused SpMM (the reference's
         hottest kernel, `spmv_spmm.hpp:138`).

@@ -1,15 +1,5 @@
-"""Pallas TPU kernels — the hand-tuned compute path.
+"""Hand-written GPU kernels (Pallas, Triton route).
 
-TPU-native replacement for the reference's hand-written CUDA kernels
-(`source/kernels/`, SURVEY.md §2 #8-#12): where the reference used
-warp-shuffle reductions and float4 loads, these kernels use VMEM slab
-pipelines, lane rolls, and (8,128)-tiled layouts.
+Each kernel stays only while it beats what XLA compiles from the plain
+jnp version on the card; `PERF.md` keeps both numbers.
 """
-
-from lanczos_tpu.ops.pallas.stencil_kernel import (
-    StencilSpec,
-    apply_stencil,
-    apply_stencil_pair,
-)
-
-__all__ = ["StencilSpec", "apply_stencil", "apply_stencil_pair"]

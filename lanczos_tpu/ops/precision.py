@@ -1,24 +1,23 @@
 """Matmul precision policy for numerically critical contractions.
 
-JAX's DEFAULT matmul precision on TPU (and on this build, even under the
-CPU emulation path) rounds matmul inputs to bfloat16: a plain
-`jnp.einsum` Gram product or QR recombine carries a ~1e-3 relative
-error floor.  For a Lanczos library that is fatal — basis orthogonality
-degrades to bf16 level, the computed T drifts off V^T A V, and Ritz
-values acquire 1e-3*||A|| errors with *tiny claimed residual bounds*
-(measured: 2.5e-2 basis overlap and 0.4-absolute T errors on a
-20k-row SPD fixture before this policy was applied).
+On the H100, JAX's DEFAULT precision runs a float32 matmul in TF32 (about
+three decimal digits): a plain `jnp.einsum` Gram product or QR recombine
+then carries a ~1e-3 relative error floor.  For a Lanczos library that is
+fatal — basis orthogonality degrades to that level, the computed T drifts
+off V^T A V, and Ritz values acquire 1e-3*||A|| errors with *tiny claimed
+residual bounds* (measured: 2.5e-2 basis overlap and 0.4-absolute T errors
+on a 20k-row SPD fixture before this policy was applied).
 
 The reference is fp32 CUDA end to end (every kernel in
 `source/kernels/*.hpp` accumulates in float), so full-f32 contractions
-are also the parity-correct semantics.  `HIGHEST` on TPU runs the MXU
-in the multi-pass f32 mode; the affected ops (p x n Gram/update
-products, p x p small-eig rotations) are bandwidth- or latency-bound at
-Lanczos block widths, so the FLOP-rate penalty does not move wall-clock
-(verified: mm_tt at p=16/10M rows is HBM-bound at either precision).
+are also the parity-correct semantics.  The affected ops (p x n Gram and
+update products, p x p small-eig rotations) are bandwidth- or
+latency-bound at Lanczos block widths, so the FLOP-rate penalty of full
+f32 does not move wall-clock.  Every on-card comparison against a
+reference states its precision.
 
-Elementwise/VPU paths (stencil, DIA, gathers, Pallas kernels) are
-unaffected — they never round through bf16.
+Elementwise paths (stencil, DIA, gathers, the Triton Gram kernel, which
+accumulates with multiply-adds, not `dot`) never round through TF32.
 """
 
 from __future__ import annotations

@@ -4,9 +4,9 @@ The block-Lanczos recurrence needs sqrtm / inv-sqrtm of an N_COL x N_COL SPD
 Gram matrix every iteration.  The reference implements this as a single-block
 warp-level Householder tridiagonalization + serial Wilkinson-shift QL kernel
 (`source/kernels/my_sqrtm_cusolver.hpp`) or cuSOLVER syevjBatched
-(`source/utils/lib_utils.hpp:696`).  Neither exists on TPU; instead we use a
+(`source/utils/lib_utils.hpp:696`).  Here the default is a
 *parallel-ordered cyclic Jacobi* eigensolver expressed entirely as p x p
-matmuls (MXU work) with a fixed sweep count — the same bounded-iteration
+matmuls with a fixed sweep count — the same bounded-iteration
 trade the reference makes (`global_iter = 3*N_COL`, my_sqrtm_cusolver.hpp:371)
 so the whole solve stays inside `lax.scan` with static shapes.
 
@@ -45,7 +45,7 @@ def jacobi_eigh(a: jax.Array, sweeps: int = 10):
     """Eigendecomposition of a symmetric matrix by parallel cyclic Jacobi.
 
     Returns (w, v) with a ~= v @ diag(w) @ v.T.  Supports leading batch
-    dimensions.  All inner steps are p x p matmuls -> MXU-mapped; the fixed
+    dimensions.  All inner steps are p x p matmuls; the fixed
     sweep count keeps the graph static (no convergence-dependent control
     flow), which is what lets it live inside a `lax.scan` Lanczos body.
     """
@@ -76,13 +76,8 @@ def jacobi_eigh(a: jax.Array, sweeps: int = 10):
         # root; the apq == 0 guard also keeps odd-size pad rows decoupled.
         nz = apq != 0.0
         tau = (aqq - app) / jnp.where(nz, 2.0 * apq, 1.0)
-        # near-converged pairs give |tau| ~ 1/apq -> unbounded.  IEEE inf
-        # handling makes t -> 0 anyway, but TPU's EMULATED f64 (f32-pair
-        # arithmetic) only has f32 RANGE: tau*tau then overflows the
-        # emulation and poisons the sweep with NaN (--dtype float64 on
-        # TPU).  Clamping is exact for the rotation: t ~ 1/(2 tau) is
-        # below eps for any |tau| past 1e18.
-        tau = jnp.clip(tau, -1e18, 1e18)
+        # near-converged pairs give |tau| ~ 1/apq -> unbounded; IEEE inf
+        # arithmetic then takes t -> 0, the exact limit of the rotation.
         sgn = jnp.where(tau >= 0.0, 1.0, -1.0).astype(a_.dtype)
         t = sgn / (jnp.abs(tau) + jnp.sqrt(1.0 + tau * tau))
         t = jnp.where(nz, t, 0.0)
@@ -107,8 +102,7 @@ def jacobi_eigh(a: jax.Array, sweeps: int = 10):
     def one_sweep(av, _):
         # fully unrolled rounds: the op bodies are tiny p x p matmuls, so
         # per-scan-iteration dispatch overhead (not FLOPs) dominates a
-        # rolled loop — unrolling lets XLA fuse across rounds (~4x faster
-        # at p=16 on TPU; VERDICT r1 weak #4)
+        # rolled loop — unrolling lets XLA fuse across rounds
         av, _ = jax.lax.scan(one_round, av, sched, unroll=n_rounds)
         return av, None
 
@@ -146,7 +140,7 @@ def newton_sqrtm_invsqrtm(a: jax.Array, iters: int = 18):
     (p-1)*sweeps sequential rotation rounds (~150 tiny dependent ops at
     p=16) and its latency dominates small-m block-Lanczos runs (VERDICT
     r1 weak #4).  Newton-Schulz needs only `iters` rounds of THREE p x p
-    MXU matmuls — ~5-8x less sequential work for the same f32 accuracy.
+    matmuls — ~5-8x less sequential work for the same f32 accuracy.
 
     Convergence domain: scaling by c = ||A||_F puts the spectrum in
     (0, 1], where the iteration is globally convergent; the early phase

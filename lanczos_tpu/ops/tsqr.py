@@ -6,7 +6,7 @@ sqrtm(W^T W) (`block_lanczos.hpp:28-34`): numerically stronger when W is
 ill-conditioned, since it never squares the condition number.
 
 TSQR structure (two-level tree): split the n rows into c chunks, QR each
-chunk on the MXU in parallel (vmapped Householder), stack the c small R
+chunk in parallel (vmapped Householder), stack the c small R
 factors, QR the (c*p, p) stack, and recombine.  On a row-sharded state
 the same tree maps onto per-shard local QRs + one gathered (c*p, p)
 reduction — O(p^2) communication instead of O(n).

@@ -13,7 +13,7 @@ from lanczos_tpu.parallel.dist_operator import (
     gather_sharded_ell,
     halo_sharded_ell,
 )
-from lanczos_tpu.parallel.dist_stencil import DistributedPallasMaxwell
+from lanczos_tpu.parallel.dist_stencil import DistributedStackedMaxwell
 
 __all__ = [
     "ROWS_AXIS",
@@ -24,5 +24,5 @@ __all__ = [
     "HaloShardedEll",
     "gather_sharded_ell",
     "halo_sharded_ell",
-    "DistributedPallasMaxwell",
+    "DistributedStackedMaxwell",
 ]

@@ -1,6 +1,6 @@
 """Row-sharded sparse operators for multi-chip Lanczos.
 
-TPU-native answer to the scaling axis the reference lacks (SURVEY.md §2
+The scaling axis the reference lacks (SURVEY.md §2
 "Distributed backend: none"): the operator's rows and every Krylov vector
 are partitioned over a 1-D device mesh, and the SpMV/SpMM runs under
 `shard_map` with explicit collectives:
@@ -35,9 +35,17 @@ from lanczos_tpu.ops.precision import HIGHEST
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from lanczos_tpu.ops.formats import _as_2d_scipy, _round_up, ROW_TILE
+from lanczos_tpu.ops.formats import _as_2d_scipy, _ell_planes, _round_up, ROW_TILE
 from lanczos_tpu.ops.operator import LinearOperator
 from lanczos_tpu.parallel.mesh import ROWS_AXIS, row_sharding
+
+
+def _shard_rows(b: np.ndarray, n_padded: int, mesh, axis) -> jax.Array:
+    """Zero-pad the last (row) axis of a host array to n_padded and place
+    it row-sharded over the mesh."""
+    pad = [(0, 0)] * (b.ndim - 1) + [(0, n_padded - b.shape[-1])]
+    spec = P(axis) if b.ndim == 1 else P(None, axis)
+    return jax.device_put(np.pad(b, pad), NamedSharding(mesh, spec))
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
@@ -160,15 +168,12 @@ class HaloShardedEll(LinearOperator):
 
     def pad_vector(self, b) -> jax.Array:
         """Permute (if reordered), zero-pad to n_padded, and shard.
-        b: (n,) or block-major (p, n)."""
-        b = jnp.asarray(b, self.dtype)
-        row_ax = b.ndim - 1
+        b: (n,) or block-major (p, n).  Done on the host, so no device
+        ever holds the whole block."""
+        b = np.asarray(b, self.dtype)
         if self.perm is not None:
-            b = jnp.take(b, jnp.asarray(self.perm, jnp.int32), axis=row_ax)
-        pad = [(0, 0)] * b.ndim
-        pad[row_ax] = (0, self.n_padded - b.shape[row_ax])
-        spec = P(self.axis) if b.ndim == 1 else P(None, self.axis)
-        return jax.device_put(jnp.pad(b, pad), NamedSharding(self.mesh, spec))
+            b = np.take(b, np.asarray(self.perm), axis=-1)
+        return _shard_rows(b, self.n_padded, self.mesh, self.axis)
 
     def unpad_vector(self, y) -> jax.Array:
         """Inverse of pad_vector: back to natural ordering and true length."""
@@ -225,7 +230,7 @@ def halo_sharded_ell(
 
     `reorder`: "none" keeps the natural row order; "rcm" applies a
     symmetric reverse-Cuthill-McKee bandwidth-reducing permutation (the
-    TPU-era analogue of the reference's `change_order` data-layout pass,
+    analogue of the reference's `change_order` data-layout pass,
     `ell_matrix.hpp:362` — reshaping for locality before the hot loop);
     "auto" applies RCM only when the natural ordering would need
     multi-hop halos.  Raises when even the reordered matrix would need
@@ -275,15 +280,9 @@ def halo_sharded_ell(
     if packed is not None:
         data, idx = packed
     else:
-        data = np.zeros((n_pad, w), np.dtype(dtype))
-        # pad entries point at the first local row (data 0 -> contributes 0)
-        idx = np.full((n_pad, w), halo, np.int32)
-        for i in range(n):
-            lo, hi = a.indptr[i], a.indptr[i + 1]
-            k = hi - lo
-            data[i, :k] = a.data[lo:hi]
-            base = (i // rows_loc) * rows_loc
-            idx[i, :k] = a.indices[lo:hi] - base + halo
+        # columns relative to the row's halo-extended shard window
+        base = (np.arange(n, dtype=np.int64) // rows_loc) * rows_loc
+        data, idx = _ell_planes(a, n_pad, w, dtype, col_shift=base - halo)
     sh = NamedSharding(mesh, P(axis, None))
     return HaloShardedEll(
         jax.device_put(jnp.asarray(data), sh),
@@ -363,12 +362,9 @@ class GatherShardedEll(LinearOperator):
 
     def pad_vector(self, b) -> jax.Array:
         """b: (n,) or block-major (p, n); pads/shard the row axis (last)."""
-        b = jnp.asarray(b, self.dtype)
-        row_ax = b.ndim - 1
-        pad = [(0, 0)] * b.ndim
-        pad[row_ax] = (0, self.n_padded - b.shape[row_ax])
-        spec = P(self.axis) if b.ndim == 1 else P(None, self.axis)
-        return jax.device_put(jnp.pad(b, pad), NamedSharding(self.mesh, spec))
+        return _shard_rows(
+            np.asarray(b, self.dtype), self.n_padded, self.mesh, self.axis
+        )
 
     def tree_flatten(self):
         return (self.data, self.indices), (self.mesh, self.n_rows_true, self.axis)
@@ -391,13 +387,7 @@ def gather_sharded_ell(
     n_pad = rows_loc * n_dev
     per_row = np.diff(a.indptr)
     w = max(int(per_row.max(initial=0)), 1)
-    data = np.zeros((n_pad, w), np.dtype(dtype))
-    idx = np.zeros((n_pad, w), np.int32)
-    for i in range(n):
-        lo, hi = a.indptr[i], a.indptr[i + 1]
-        k = hi - lo
-        data[i, :k] = a.data[lo:hi]
-        idx[i, :k] = a.indices[lo:hi]
+    data, idx = _ell_planes(a, n_pad, w, dtype)
     sh = NamedSharding(mesh, P(axis, None))
     return GatherShardedEll(
         jax.device_put(jnp.asarray(data), sh),

@@ -1,16 +1,16 @@
-"""Distributed Pallas Maxwell operator: z-slab domain decomposition.
+"""Distributed stacked Maxwell operator: z-slab domain decomposition.
 
-The north-star multi-chip design (SURVEY.md §2 parallelism table): the
-stacked folded-plane state (6, Z, P) is sharded over the mesh ``rows``
-axis along z.  Each shard stores ``[tz pad | Zl interior | tz pad]``
-(pads zero, so global dots/norms need no masking), and one SpMV is
+The stacked folded-plane state (6, Z, P) of `models/maxwell_stacked.py` is
+sharded over the mesh ``rows`` axis along z.  Each shard stores
+``[1 pad row | Zl interior rows | 1 pad row]`` (pads zero, so global dots
+and norms need no masking), and one SpMV is
 
   1. `ppermute` ONE z-plane (6, 1, P) to each neighbor — O(plane) bytes,
      independent of n: the weak-scaling halo exchange;
-  2. write the received planes into the pad rows adjacent to the interior
-     (input copy only — the state keeps its zero-pad invariant);
-  3. run the single-chip Pallas stencil kernel on the local slab with
-     this shard's z-weight slice.
+  2. write the received planes into the pad rows (input copy only — the
+     state keeps its zero-pad invariant);
+  3. apply the stacked stencil to the local slab with this shard's
+     z-weight slice.
 
 Everything else (axpys, Gram matrices, norms) runs on the sharded global
 array under jit with GSPMD-inserted psums, so `vector_lanczos` /
@@ -29,122 +29,75 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from lanczos_tpu.models.maxwell import (
-    _build_taps,
-    maxwell_component_shapes,
-)
+from lanczos_tpu.models.maxwell import maxwell_component_shapes
+from lanczos_tpu.models.maxwell_stacked import apply_stacked, stacked_taps
 from lanczos_tpu.ops.operator import LinearOperator
-from lanczos_tpu.ops.pallas import StencilSpec, apply_stencil_pair
 from lanczos_tpu.parallel.mesh import ROWS_AXIS
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _local_mv(u_loc, wz_t, wp_s, spec_e, spec_h, tz, axis):
-    """Per-shard body: halo exchange one z-plane each way, fill the pad
-    rows adjacent to the interior, run the fused pair kernel."""
+def _local_mv(u_loc, wz, wp, taps, axis):
+    """Per-shard body: halo exchange one z-plane each way into the pad
+    rows, then the stacked stencil on the local slab."""
     n_dev = jax.lax.axis_size(axis)
     zs = u_loc.shape[1]
     fwd = [(i, i + 1) for i in range(n_dev - 1)]
     bwd = [(i + 1, i) for i in range(n_dev - 1)]
-    # my last interior row -> right neighbor's left halo; edges get zeros.
-    from_left = jax.lax.ppermute(u_loc[:, zs - tz - 1 : zs - tz, :], axis, fwd)
-    from_right = jax.lax.ppermute(u_loc[:, tz : tz + 1, :], axis, bwd)
-    u_work = jax.lax.dynamic_update_slice(u_loc, from_left, (0, tz - 1, 0))
-    u_work = jax.lax.dynamic_update_slice(u_work, from_right, (0, zs - tz, 0))
-    # sharded z-weights arrive as (1, 2, Zs, n_taps) per shard
-    return apply_stencil_pair(u_work, wz_t[0], wp_s, spec_e, spec_h)
+    # my last interior row -> right neighbor's left pad; edges get zeros.
+    from_left = jax.lax.ppermute(u_loc[:, zs - 2 : zs - 1], axis, fwd)
+    from_right = jax.lax.ppermute(u_loc[:, 1:2], axis, bwd)
+    u_work = jnp.concatenate(
+        [from_left, u_loc[:, 1 : zs - 1], from_right], axis=1
+    )
+    # sharded z-weights arrive as (1, n_taps, Zs) per shard
+    return apply_stacked(u_work, wz[0], wp, taps)
 
 
 @jax.tree_util.register_pytree_node_class
-class DistributedPallasMaxwell(LinearOperator):
-    """Z-sharded Pallas Maxwell operator over a 1-D device mesh."""
+class DistributedStackedMaxwell(LinearOperator):
+    """Z-sharded stacked Maxwell operator over a 1-D device mesh."""
 
-    def __init__(self, nx, ny, nz, weights, specs, mesh, zl, dtype_name):
+    def __init__(self, nx, ny, nz, weights, taps, mesh, zl, dtype_name):
         self.nx, self.ny, self.nz = nx, ny, nz
-        # weights = (wz_t, wp_s): wz_t (n_dev, 2, Zs, n_taps) row-sharded
-        # per-shard z weights; wp_s (2, n_taps, P) replicated.
-        self.wz_t, self.wplane_s = weights
-        self.spec_e, self.spec_h = specs
+        # weights = (wz, wp): wz (n_dev, n_taps, Zs) row-sharded per-shard
+        # z weights; wp (n_taps, P) replicated.
+        self.wz, self.wplane = weights
+        self.taps = taps
         self.mesh = mesh
         self.zl = zl  # interior z rows per shard
+        self.zs = zl + 2  # stored rows per shard
         self.dtype_name = dtype_name
         self.comp_shapes = maxwell_component_shapes(nx, ny, nz)
         self.comp_sizes = tuple(int(np.prod(s)) for s in self.comp_shapes)
         self.n = int(sum(self.comp_sizes))
         self.xc = nx + 3
         self.yc = ny + 3
+        self.plane = self.yc * self.xc
         self.axis = ROWS_AXIS
 
     @classmethod
     def create(
-        cls, nx, ny, nz, mesh: Mesh, dtype=jnp.float32, tz: int = 8
-    ) -> "DistributedPallasMaxwell":
-        if tz % 8:
-            raise ValueError("tz must be a multiple of 8")
+        cls, nx, ny, nz, mesh: Mesh, dtype=jnp.float32
+    ) -> "DistributedStackedMaxwell":
         n_dev = int(np.prod(mesh.devices.shape))
-        descs, arrays = _build_taps(nx, ny, nz, np.float64)
-        shapes = maxwell_component_shapes(nx, ny, nz)
-        xc, yc = nx + 3, ny + 3
-        plane = _round_up(yc * xc, 128)
+        taps, wz_int, wp = stacked_taps(nx, ny, nz)
         z_ext = nz + 1  # max component z extent
-        zl = _round_up(-(-z_ext // n_dev), tz)  # interior rows per shard
-        zs = zl + 2 * tz  # + leading/trailing all-pad blocks
-
-        halves = {"e": {"wz": [], "wp": [], "taps": []},
-                  "h": {"wz": [], "wp": [], "taps": []}}
-        for (out_c, in_c, ax, off), (wz_l, wy_l, wx_l) in zip(descs, arrays):
-            zlen, ylen, xlen = shapes[out_c]
-            # per-shard z weights: shard s rows [tz, tz+zl) hold global
-            # z in [s*zl, (s+1)*zl)
-            row_z = np.zeros((n_dev, zs), np.dtype(dtype))
-            full = np.zeros(n_dev * zl)
-            full[:zlen] = wz_l
-            row_z[:, tz : tz + zl] = full.reshape(n_dev, zl)
-            wp = np.zeros((yc, xc))
-            wp[1 : 1 + ylen, 1 : 1 + xlen] = np.outer(wy_l, wx_l)
-            row_p = np.zeros(plane, np.dtype(dtype))
-            row_p[: yc * xc] = wp.reshape(-1)
-            if ax == 0:
-                dz, roll = off, 0
-            elif ax == 1:
-                dz, roll = 0, (-off * xc) % plane
-            else:
-                dz, roll = 0, (-off) % plane
-            half = halves["e"] if out_c < 3 else halves["h"]
-            oc_local = out_c if out_c < 3 else out_c - 3
-            ic_local = in_c - 3 if out_c < 3 else in_c
-            half["wz"].append(row_z)
-            half["wp"].append(row_p)
-            half["taps"].append((oc_local, ic_local, dz, roll))
-
-        specs = tuple(
-            StencilSpec(
-                n_in=3, n_out=3, taps=tuple(halves[k]["taps"]),
-                zc=zs, plane=plane, tz=tz, paired=True,
-            )
-            for k in ("e", "h")
+        zl = -(-z_ext // n_dev)  # interior rows per shard
+        full = np.zeros((len(taps), n_dev * zl))
+        full[:, :z_ext] = wz_int
+        # shard s stores global interior z in [s*zl, (s+1)*zl) at rows 1..zl
+        wz = np.zeros((n_dev, len(taps), zl + 2))
+        wz[:, :, 1 : 1 + zl] = full.reshape(len(taps), n_dev, zl).transpose(
+            1, 0, 2
         )
-        axis = ROWS_AXIS
-        # wz_t: (n_dev, 2, Zs, n_taps) — per-shard stacked transposed z
-        # weights; wp_s: (2, n_taps, P) replicated.
-        wz_t = np.stack(
-            [
-                np.stack(halves[k]["wz"], axis=1).transpose(0, 2, 1)
-                for k in ("e", "h")
-            ],
-            axis=1,
-        )
-        wp_s = np.stack([np.stack(halves[k]["wp"]) for k in ("e", "h")])
+        wdtype = jnp.promote_types(jnp.float32, dtype)
         weights = (
             jax.device_put(
-                jnp.asarray(wz_t), NamedSharding(mesh, P(axis, None, None, None))
+                jnp.asarray(wz, wdtype),
+                NamedSharding(mesh, P(ROWS_AXIS, None, None)),
             ),
-            jax.device_put(jnp.asarray(wp_s), NamedSharding(mesh, P())),
+            jax.device_put(jnp.asarray(wp, wdtype), NamedSharding(mesh, P())),
         )
-        return cls(nx, ny, nz, weights, specs, mesh, zl, np.dtype(dtype).name)
+        return cls(nx, ny, nz, weights, taps, mesh, zl, np.dtype(dtype).name)
 
     # -- properties ---------------------------------------------------------
 
@@ -163,15 +116,13 @@ class DistributedPallasMaxwell(LinearOperator):
     @property
     def state_shape(self):
         # global stacked state: z = n_dev shard segments of Zs rows each
-        return (6, self.n_dev * self.spec_e.zc, self.spec_e.plane)
+        return (6, self.n_dev * self.zs, self.plane)
 
     @property
     def state_pspec(self):
         """PartitionSpec of ONE state vector (no block axis): z-sharded.
         The Lanczos drivers prepend None axes for p / basis dims and pin
         the scan carry with it (keeps GSPMD from rematerializing)."""
-        from jax.sharding import PartitionSpec as P
-
         return P(None, self.axis, None)
 
     # -- compute ------------------------------------------------------------
@@ -180,64 +131,46 @@ class DistributedPallasMaxwell(LinearOperator):
         spec_u = (
             P(None, None, self.axis, None) if block else P(None, self.axis, None)
         )
-        fn = functools.partial(
-            _local_mv,
-            spec_e=self.spec_e, spec_h=self.spec_h,
-            tz=self.spec_e.tz, axis=self.axis,
-        )
+        fn = functools.partial(_local_mv, taps=self.taps, axis=self.axis)
         if block:
             inner = fn
             fn = lambda U, *w: jax.vmap(lambda u: inner(u, *w))(U)
         return jax.shard_map(
             fn,
             mesh=self.mesh,
-            in_specs=(
-                spec_u,
-                P(self.axis, None, None, None), P(),
-            ),
+            in_specs=(spec_u, P(self.axis, None, None), P()),
             out_specs=spec_u,
-            # pallas_call outputs carry no varying-mesh-axes annotation
-            check_vma=False,
         )
 
     def mv(self, u: jax.Array) -> jax.Array:
-        return self._mapped(False)(u, self.wz_t, self.wplane_s)
+        return self._mapped(False)(u, self.wz, self.wplane)
 
     def mm(self, U: jax.Array) -> jax.Array:
-        return self._mapped(True)(U, self.wz_t, self.wplane_s)
-
-    def scaled(self, s) -> "DistributedPallasMaxwell":
-        """Operator computing (s*A) @ u — scalar prefactors (FDTD dt,
-        bench damping) folded into the z-weights for free."""
-        return jax.tree_util.tree_unflatten(
-            jax.tree_util.tree_structure(self),
-            [self.wz_t * jnp.asarray(s, self.wz_t.dtype), self.wplane_s],
-        )
+        return self._mapped(True)(U, self.wz, self.wplane)
 
     # -- state packing ------------------------------------------------------
 
     def _z_map(self, z: int) -> int:
         """Global interior z -> global storage z (shard segment layout)."""
-        tz, zs = self.spec_e.tz, self.spec_e.zc
         s, zloc = divmod(z, self.zl)
-        return s * zs + tz + zloc
+        return s * self.zs + 1 + zloc
 
     def pack(self, b) -> jax.Array:
         """Flat logical vector(s) -> sharded stacked state."""
         b = np.asarray(b, self.dtype)
         if b.ndim == 2:
-            out = np.stack([np.asarray(self._pack1(x)) for x in b])
+            out = np.stack([self._pack1(x) for x in b])
             spec = P(None, None, self.axis, None)
         else:
             out = self._pack1(b)
             spec = P(None, self.axis, None)
-        return jax.device_put(
-            jnp.asarray(out), NamedSharding(self.mesh, spec)
-        )
+        return jax.device_put(out, NamedSharding(self.mesh, spec))
+
+    def _storage_rows(self, zl_c: int) -> np.ndarray:
+        return np.asarray([self._z_map(z) for z in range(zl_c)])
 
     def _pack1(self, b: np.ndarray) -> np.ndarray:
-        tz, zs, plane = self.spec_e.tz, self.spec_e.zc, self.spec_e.plane
-        u = np.zeros((6, self.n_dev * zs, plane), self.dtype)
+        u = np.zeros((6, self.n_dev * self.zs, self.plane), self.dtype)
         o = 0
         for c, ((zl_c, yl, xl), sz) in enumerate(
             zip(self.comp_shapes, self.comp_sizes)
@@ -246,9 +179,7 @@ class DistributedPallasMaxwell(LinearOperator):
             o += sz
             padded = np.zeros((zl_c, self.yc, self.xc), self.dtype)
             padded[:, 1 : 1 + yl, 1 : 1 + xl] = comp
-            flat = padded.reshape(zl_c, self.yc * self.xc)
-            for z in range(zl_c):
-                u[c, self._z_map(z), : self.yc * self.xc] = flat[z]
+            u[c, self._storage_rows(zl_c)] = padded.reshape(zl_c, self.plane)
         return u
 
     def unpack(self, u: jax.Array) -> np.ndarray:
@@ -257,13 +188,8 @@ class DistributedPallasMaxwell(LinearOperator):
             return np.stack([self.unpack(x) for x in u])
         parts = []
         for c, (zl_c, yl, xl) in enumerate(self.comp_shapes):
-            comp = np.zeros((zl_c, yl, xl), u.dtype)
-            for z in range(zl_c):
-                row = u[c, self._z_map(z), : self.yc * self.xc].reshape(
-                    self.yc, self.xc
-                )
-                comp[z] = row[1 : 1 + yl, 1 : 1 + xl]
-            parts.append(comp.reshape(-1))
+            rows = u[c, self._storage_rows(zl_c)].reshape(zl_c, self.yc, self.xc)
+            parts.append(rows[:, 1 : 1 + yl, 1 : 1 + xl].reshape(-1))
         return np.concatenate(parts)
 
     def state_index(self, lc: int) -> tuple[int, int, int]:
@@ -284,14 +210,12 @@ class DistributedPallasMaxwell(LinearOperator):
     # -- pytree -------------------------------------------------------------
 
     def tree_flatten(self):
-        return (self.wz_t, self.wplane_s), (
-            self.nx, self.ny, self.nz, self.spec_e, self.spec_h,
-            self.mesh, self.zl, self.dtype_name,
+        return (self.wz, self.wplane), (
+            self.nx, self.ny, self.nz, self.taps, self.mesh, self.zl,
+            self.dtype_name,
         )
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        nx, ny, nz, spec_e, spec_h, mesh, zl, dtype_name = aux
-        return cls(
-            nx, ny, nz, tuple(children), (spec_e, spec_h), mesh, zl, dtype_name
-        )
+        nx, ny, nz, taps, mesh, zl, dtype_name = aux
+        return cls(nx, ny, nz, tuple(children), taps, mesh, zl, dtype_name)

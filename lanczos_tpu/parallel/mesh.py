@@ -1,11 +1,12 @@
 """Device-mesh helpers for the distributed layer.
 
 The reference is strictly single-GPU (SURVEY.md §2 "Parallelism &
-communication inventory": no MPI/NCCL/streams).  The TPU framework adds the
-multi-chip dimension the north star requires: a 1-D mesh over the ``rows``
-axis — domain decomposition of the operator rows and every Krylov vector —
-with `shard_map` collectives (`ppermute` halo exchange, `psum` reductions)
-riding ICI.
+communication inventory": no MPI/NCCL/streams).  This framework adds the
+multi-card dimension: a 1-D mesh over the ``rows`` axis — domain
+decomposition of the operator rows and every Krylov vector — with
+`shard_map` collectives (`ppermute` halo exchange, `psum` reductions).
+The cards of one host are joined all to all by NVLink, so the mesh follows
+the algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,3 +1,3 @@
-from lanczos_tpu.utils.timing import benchmark_best, benchmark_chained, roofline
+from lanczos_tpu.utils.timing import card_line, per_iteration, require_gpu, steady
 
-__all__ = ["benchmark_best", "benchmark_chained", "roofline"]
+__all__ = ["card_line", "per_iteration", "require_gpu", "steady"]

@@ -148,7 +148,7 @@ def test_adaptive_distributed_matches_local():
     single-device Ritz values on the rank-collapse fixture."""
     from lanczos_tpu.methods.eigs import block_lanczos_eigsh
     from lanczos_tpu.ops.operator import MatrixOperator
-    from lanczos_tpu.parallel.dist_windowed import halo_sharded_windowed
+    from lanczos_tpu.parallel.dist_operator import halo_sharded_ell
     from lanczos_tpu.parallel.mesh import make_mesh
 
     n, p, m = 1600, 4, 10
@@ -156,7 +156,7 @@ def test_adaptive_distributed_matches_local():
     rng = np.random.default_rng(5)
     b_np = rng.standard_normal((p, n)).astype(np.float32)
 
-    A = halo_sharded_windowed(a, make_mesh(8), cpb=2, spg=2)
+    A = halo_sharded_ell(a, make_mesh(8))
     vals_d, _, _ = block_lanczos_eigsh(
         A, A.pad_vector(b_np), m, 3, reorth="full", normalize="qr",
         breakdown_eps=1e-4, replace_dead=True,

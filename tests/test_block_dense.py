@@ -1,10 +1,9 @@
-"""Fused block-dense Pallas kernels (`ops/pallas/block_dense.py`) vs
-einsum oracles, and the fused (traffic-minimal) block-Lanczos path vs the
-materialized recurrence.
+"""Block-dense products (`ops/block_dense.py`, the Triton-route Gram kernel
+`ops/pallas/gram.py` in interpret mode) vs einsum oracles, and the fused
+(traffic-minimal) block-Lanczos path vs the materialized recurrence.
 
-TPU counterparts of the reference's mm_ts / mm_tt / mm_tt2 kernel A/B
-checks (`kernels/measurements/mm_tt.cu:210-248` etc.), run in Pallas
-interpret mode on CPU.
+Counterparts of the reference's mm_ts / mm_tt / mm_tt2 kernel A/B checks
+(`kernels/measurements/mm_tt.cu:210-248` etc.).
 """
 
 import jax
@@ -14,7 +13,8 @@ import pytest
 
 from lanczos_tpu.methods.block_lanczos import block_lanczos
 from lanczos_tpu.ops.operator import MatrixOperator
-from lanczos_tpu.ops.pallas.block_dense import block_grams, block_mix
+from lanczos_tpu.ops.block_dense import block_grams, block_mix, gram_reference
+from lanczos_tpu.ops.pallas.gram import triton_grams
 
 
 @pytest.mark.parametrize(
@@ -57,17 +57,6 @@ def test_block_grams_matches_einsum(rng, state):
     )
     assert g.shape == (13, 3)
     np.testing.assert_allclose(np.asarray(g), ref, rtol=1e-4, atol=1e-4)
-
-
-def test_block_mix_fallback_unaligned(rng):
-    # state length not divisible by 128 -> jnp fallback path
-    xs = [jnp.asarray(rng.standard_normal((4, 97)), jnp.float32)]
-    c = jnp.asarray(rng.standard_normal((4, 4)), jnp.float32)
-    out = block_mix(c, xs)
-    ref = jnp.einsum("kj,k...->j...", c, xs[0])
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-5)
-    g = block_grams(xs, xs[0], include_zz=True)
-    assert g.shape == (8, 4)
 
 
 @pytest.mark.parametrize("dtype,tol", [(jnp.float64, 1e-12), (jnp.float32, 5e-5)])
@@ -131,14 +120,12 @@ def test_fused_trace_fn_maxwell(rng):
 
 
 def test_compensated_gram_f64_oracle(rng):
-    """`block_grams_compensated` reaches O(eps_f32) of the f64 oracle on
-    inputs whose plain-f32 accumulation error is ~10x larger (the
-    reference's all-f64 block driver accuracy from f32 storage,
-    `test_lanczos.cu:349-356` / SURVEY.md §7 'f32 + compensated
-    reductions')."""
-    from lanczos_tpu.ops.pallas.block_dense import (
-        block_grams_compensated,
-    )
+    """f64-accumulated Gram blocks from f32 storage reach O(eps_f32) of
+    the f64 oracle on inputs whose plain-f32 accumulation error is ~10x
+    larger (the reference's all-f64 block driver accuracy from f32
+    storage, `test_lanczos.cu:349-356`)."""
+    def block_grams_compensated(xs, z, include_zz=False):
+        return block_grams(xs, z, include_zz, acc_dtype=jnp.float64)
 
     p, n = 4, 1 << 20
     x = (
@@ -189,42 +176,6 @@ def test_compensated_block_lanczos_t_coefficients(rng):
     assert err_c <= err_p * 1.5  # never meaningfully worse overall
 
 
-def test_lane_tiled_plan(rng, monkeypatch):
-    """Wide-p blocks must lane-tile instead of blowing the VMEM budget
-    (p=6 on the Maxwell state OOMed the 100 MiB scoped limit before the
-    planner learned to split the plane axis)."""
-    import lanczos_tpu.ops.pallas.block_dense as bd
-
-    monkeypatch.setattr(bd, "_VMEM_BUDGET", 256 * 1024)
-    state = (6, 16, 512)
-    plan = bd._plan_blocks(state, jnp.float32, 4, [4, 4, 4, 6])
-    assert plan[0] == "tiled" and plan[3] < 512  # lanes were split
-    xs = [
-        jnp.asarray(rng.standard_normal((4,) + state), jnp.float32)
-        for _ in range(3)
-    ]
-    c = jnp.asarray(rng.standard_normal((12, 6)), jnp.float32)
-    out = bd.block_mix(c, xs)
-    ref = sum(
-        jnp.einsum("kj,k...->j...", c[i * 4 : (i + 1) * 4], xs[i])
-        for i in range(3)
-    )
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-5)
-    g = bd.block_grams((xs[0],), xs[1], include_zz=True)
-    zf = np.asarray(xs[1], np.float64).reshape(4, -1)
-    ref_g = np.concatenate(
-        [np.asarray(x, np.float64).reshape(4, -1) @ zf.T for x in (xs[0], xs[1])]
-    )
-    np.testing.assert_allclose(np.asarray(g), ref_g, rtol=1e-4, atol=1e-4)
-    # real-shape plans stay under the scoped limit for every sweep width
-    monkeypatch.setattr(bd, "_VMEM_BUDGET", 56 * 1024 * 1024)
-    for p in (2, 4, 6, 8, 10, 12, 14, 16, 18):
-        plan = bd._plan_blocks((6, 176, 26624), jnp.float32, 4, [p] * 4)
-        assert plan is not None
-        _, lead, bm, pt = plan
-        assert p * bm * pt * 4 * 4 * 2 <= 56 * 1024 * 1024
-
-
 @pytest.mark.parametrize("m", [1, 2, 3])
 def test_fused_small_m_edges(rng, m):
     """m=1 (prologue only), m=2 (peeled step, no scan), m=3 (scan length
@@ -263,45 +214,113 @@ def test_vector_fused_route_matches_classic(rng):
         )
 
 
-def test_compensated_scratch_shrink_keeps_compensation(rng):
-    """ADVICE r4 (medium): when the two-float scratch would overflow its
-    VMEM budget at the planner's lane tile, the lane tile must SHRINK and
-    compensation must survive — the old path silently fell back to an
-    astype(float64) einsum that computes plain f32 without x64."""
-    from lanczos_tpu.ops.pallas.block_dense import block_grams_compensated
-
-    import lanczos_tpu.ops.pallas.block_dense as bd
-
-    # small shapes + a shrunk budget (test-patchable module constant)
-    # force the lane-tile shrink path cheaply: p=4 -> K*p = 32 pairs,
-    # default tile 8192 lanes -> scratch 2.1 MB > the patched 1 MB cap.
-    n, p = 1 << 13, 4
-    bd_orig = bd._COMP_SCRATCH_BUDGET
-    bd._COMP_SCRATCH_BUDGET = 1 * 1024 * 1024
-    try:
-        x = rng.standard_normal((p, n)).astype(np.float32) * 0.1
-        z = rng.standard_normal((p, n)).astype(np.float32) * 0.1
-        g = block_grams_compensated((jnp.asarray(x),), jnp.asarray(z),
-                                    include_zz=True)
-    finally:
-        bd._COMP_SCRATCH_BUDGET = bd_orig
-    oracle = np.concatenate([
-        x.astype(np.float64) @ z.astype(np.float64).T,
-        z.astype(np.float64) @ z.astype(np.float64).T,
-    ])
-    scale = np.abs(oracle).max()
-    np.testing.assert_allclose(np.asarray(g), oracle, atol=4e-7 * scale)
+_GRAM_CASES = [
+    (p, n, k, acc)
+    for p in (1, 2, 4, 8, 16)
+    for n in (1000, 2048)  # ragged, and a multiple of every row tile
+    for k in (1, 2, 3)
+    for acc in ("float32", "float64")
+]
 
 
-def test_compensated_non_tileable_raises(rng):
-    """Non-lane-tileable state without x64: loud error, never a silent
-    uncompensated result (ADVICE r4)."""
-    import pytest
+@pytest.mark.parametrize("p,n,k,acc", _GRAM_CASES)
+def test_triton_grams_interpret(rng, p, n, k, acc):
+    """The Triton-route Gram kernel (interpret mode) against the jnp
+    reference at precision HIGHEST: k operands of mixed widths against
+    one z, with gram(z, z), accumulated in f32 or f64."""
+    widths = [p, max(p // 2, 1), p + 1][:k]
+    xs = [jnp.asarray(rng.standard_normal((w, n)), jnp.float32)
+          for w in widths]
+    z = jnp.asarray(rng.standard_normal((p, n)), jnp.float32)
+    got = triton_grams(xs, z, include_zz=True, acc_dtype=acc,
+                       interpret=True)
+    ref = gram_reference(xs, z, include_zz=True, acc_dtype=acc)
+    assert got.shape == (sum(widths) + p, p) and got.dtype == ref.dtype
+    # f32: ~sqrt(n) eps accumulation-order noise; f64: rounding of the
+    # f32 products is exact in f64, so only f64 summation order differs
+    tol = 1e-5 if acc == "float32" else 1e-12
+    scale = float(jnp.abs(ref).max())
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                               atol=tol * scale)
 
-    from lanczos_tpu.ops.pallas.block_dense import block_grams_compensated
 
-    if jax.config.read("jax_enable_x64"):
-        pytest.skip("x64 enabled: the exact f64 fallback is legitimate")
-    z = jnp.asarray(rng.standard_normal((2, 7, 33)), jnp.float32)
-    with pytest.raises(ValueError, match="lane-tileable"):
-        block_grams_compensated((), z, include_zz=True)
+def test_triton_grams_state_shapes(rng):
+    """Structured (p, *state) operands are read as their flat rows."""
+    xs = [jnp.asarray(rng.standard_normal((3, 6, 5, 7)), jnp.float32)]
+    z = jnp.asarray(rng.standard_normal((3, 6, 5, 7)), jnp.float32)
+    got = triton_grams(xs, z, include_zz=False, interpret=True)
+    ref = gram_reference(xs, z)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-4)
+
+
+def test_block_grams_platform_choice(rng, monkeypatch):
+    """gpu runs the kernel, cpu the plain jnp version, any other platform
+    raises."""
+    import lanczos_tpu.ops.block_dense as bd
+    import lanczos_tpu.ops.pallas.gram as gram_mod
+
+    z = jnp.asarray(rng.standard_normal((2, 64)), jnp.float32)
+    calls = []
+    monkeypatch.setattr(
+        gram_mod, "triton_grams",
+        lambda *a, **k: calls.append(k) or gram_reference(a[0], a[1]),
+    )
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    bd.block_grams((z,), z)
+    assert calls and "interpret" not in calls[0]
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+    with pytest.raises(NotImplementedError):
+        bd.block_grams((z,), z)
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    np.testing.assert_allclose(
+        np.asarray(bd.block_grams((z,), z, include_zz=True)),
+        np.asarray(gram_reference((z,), z, include_zz=True)),
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+def test_triton_grams_on_card(gpu, p):
+    """The kernel compiled for the card (no interpret mode) against the
+    jnp reference at HIGHEST, at a ragged width of a few tiles."""
+    kx, kz = jax.random.split(jax.random.PRNGKey(p))
+    n = 3 * 4096 + 17
+    xs = (jax.random.normal(kx, (p, n), jnp.float32),)
+    z = jax.random.normal(kz, (p, n), jnp.float32)
+    got = np.asarray(triton_grams(xs, z, include_zz=True))
+    ref = np.asarray(gram_reference(xs, z, include_zz=True))
+    np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
+
+
+class _RoutedToFused(Exception):
+    pass
+
+
+@pytest.mark.parametrize("p,n,fused", [
+    (1, 1 << 20, False), (1, 1 << 22, True),  # 4 MiB / 16 MiB vectors
+    (2, 1 << 16, False), (2, 1 << 17, True),  # 0.5 MiB / 1 MiB blocks
+])
+def test_fused_gate_by_width(monkeypatch, p, n, fused):
+    """Bare runs take the fused recurrence from 16 MiB at p=1 and from
+    1 MiB at p >= 2 (the crossovers measured on the card)."""
+    import scipy.sparse as sp
+
+    import lanczos_tpu.methods.block_lanczos_fused as blf
+    from lanczos_tpu.methods.vector_lanczos import vector_lanczos
+    from lanczos_tpu.ops.formats import dia_from_scipy
+
+    def spy(*args, **kwargs):
+        raise _RoutedToFused
+
+    monkeypatch.setattr(blf, "block_lanczos_fused", spy)
+    op = dia_from_scipy(sp.diags(np.linspace(1.0, 2.0, n)), dtype=jnp.float32)
+    b = jnp.ones((p, n), jnp.float32)
+    if p == 1:
+        run = lambda: vector_lanczos(op, b[0], 2)
+    else:
+        run = lambda: block_lanczos(op, b, 2)
+    if fused:
+        with pytest.raises(_RoutedToFused):
+            run()
+    else:
+        jax.block_until_ready(run().alphas)

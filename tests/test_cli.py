@@ -29,18 +29,18 @@ def test_vector_driver_converges():
 
 
 @pytest.mark.slow
-def test_pallas_operator_driver():
+def test_stacked_operator_driver():
     out = _run([
-        "-N", "3", "-m", "6", "--block", "--operator", "pallas",
+        "-N", "3", "-m", "6", "--block", "--operator", "stacked",
         "--fdtd-steps", "50000", "--lc", "20", "--eig-backend", "lax",
     ])
     assert out["relative_error"] < 1e-3
 
 
 @pytest.mark.slow
-def test_distributed_pallas_driver():
+def test_distributed_stacked_driver():
     out = _run([
-        "-N", "3", "-m", "5", "--vector", "--operator", "pallas",
+        "-N", "3", "-m", "5", "--vector", "--operator", "stacked",
         "--devices", "8", "--fdtd-steps", "50000", "--lc", "20",
     ])
     assert out["relative_error"] < 1e-3

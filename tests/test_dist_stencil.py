@@ -1,4 +1,4 @@
-"""Distributed Pallas Maxwell operator on the 8-device CPU mesh.
+"""Distributed stacked Maxwell operator on the 8-device CPU mesh.
 
 Z-slab decomposition + one-plane ppermute halo exchange must reproduce
 the scipy-assembled operator and the single-chip Lanczos results.
@@ -15,7 +15,7 @@ from lanczos_tpu.methods.vector_lanczos import vector_lanczos
 from lanczos_tpu.models.maxwell import MaxwellOperator, assemble_maxwell_A
 from lanczos_tpu.models.rhs import gaussian_matrix_B, gaussian_vector_b
 from lanczos_tpu.parallel import make_mesh
-from lanczos_tpu.parallel.dist_stencil import DistributedPallasMaxwell
+from lanczos_tpu.parallel.dist_stencil import DistributedStackedMaxwell
 
 
 @pytest.fixture(scope="module")
@@ -27,7 +27,7 @@ def mesh():
 @pytest.fixture(scope="module")
 def dist_op(mesh):
     # nz=7 -> z extent 8 -> 1 interior row per shard: maximum halo stress
-    return DistributedPallasMaxwell.create(5, 6, 7, mesh, dtype=jnp.float32)
+    return DistributedStackedMaxwell.create(5, 6, 7, mesh, dtype=jnp.float32)
 
 
 def test_pack_unpack_roundtrip(dist_op, rng):
@@ -52,7 +52,7 @@ def test_mm_matches_scipy(dist_op, rng):
 def test_distributed_vector_lanczos_matches_single(mesh, rng):
     n_grid = 4
     ref_op = MaxwellOperator.create(n_grid, n_grid, n_grid, dtype=jnp.float32)
-    dop = DistributedPallasMaxwell.create(
+    dop = DistributedStackedMaxwell.create(
         n_grid, n_grid, n_grid, mesh, dtype=jnp.float32
     )
     b = np.asarray(gaussian_vector_b(n_grid, dop.n), np.float32)
@@ -73,7 +73,7 @@ def test_distributed_vector_lanczos_matches_single(mesh, rng):
 def test_distributed_block_lanczos_matches_single(mesh, rng):
     n_grid = 4
     ref_op = MaxwellOperator.create(n_grid, n_grid, n_grid, dtype=jnp.float32)
-    dop = DistributedPallasMaxwell.create(
+    dop = DistributedStackedMaxwell.create(
         n_grid, n_grid, n_grid, mesh, dtype=jnp.float32
     )
     B = np.asarray(gaussian_matrix_B(n_grid, dop.n, 3), np.float32)

@@ -142,57 +142,3 @@ def test_to_dense_roundtrip(rng, maker):
     ref = a.toarray()
     assert dense.shape == ref.shape
     np.testing.assert_allclose(dense, ref, rtol=0, atol=1e-6)
-
-
-def test_bsr_windowed_engine_matches_dense(rng):
-    """BASELINE config 3 (bs=8 BSR SpMM): the windowed-engine facade is
-    a drop-in for the einsum BsrMatrix — same mv/mm/to_dense in the
-    original row ordering."""
-    import scipy.sparse as sp
-
-    n, bs = 128, 8
-    nbr = n // bs
-    tri = sp.diags([np.ones(nbr - 1), np.ones(nbr), np.ones(nbr - 1)],
-                   [-1, 0, 1], format="csr")
-    dense = rng.standard_normal((tri.nnz, bs, bs)) * 0.1
-    a_sp = sp.bsr_matrix((dense, tri.indices, tri.indptr),
-                         shape=(n, n)).tocsr().astype(np.float32)
-    a_w = bsr_from_scipy(a_sp, block_size=bs, engine="windowed")
-    a_e = bsr_from_scipy(a_sp, block_size=bs, engine="einsum")
-    x = jnp.asarray(rng.standard_normal((3, n)), jnp.float32)
-    yw = np.asarray(a_w.mm(x))
-    ye = np.asarray(a_e.mm(x))
-    np.testing.assert_allclose(yw, ye, atol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(a_w.to_dense()), a_sp.toarray(), atol=1e-6
-    )
-    assert a_w.block_size == bs and a_w.nnz == a_sp.nnz
-
-
-def test_bsr_windowed_eigsh_end_to_end(rng):
-    """Config-3 end-to-end: block-Lanczos eigsh on the windowed-engine
-    BSR operator vs scipy."""
-    import scipy.sparse as sp
-    from scipy.sparse.linalg import eigsh as seig
-
-    from lanczos_tpu.methods.eigs import block_lanczos_eigsh
-
-    n, bs = 256, 8
-    nbr = n // bs
-    tri = sp.diags([np.ones(nbr - 1), np.ones(nbr), np.ones(nbr - 1)],
-                   [-1, 0, 1], format="csr")
-    dense = rng.standard_normal((tri.nnz, bs, bs)) * 0.1
-    a_sp = sp.bsr_matrix((dense, tri.indices, tri.indptr),
-                         shape=(n, n)).tocsr()
-    a_sp = (a_sp + a_sp.T).astype(np.float32)
-    a_sp = a_sp + sp.diags(
-        np.abs(a_sp).sum(axis=1).A1
-        if hasattr(np.abs(a_sp).sum(axis=1), "A1")
-        else np.asarray(np.abs(a_sp).sum(axis=1)).ravel()
-    ).astype(np.float32)
-    op = bsr_from_scipy(a_sp, block_size=bs, engine="windowed")
-    b = jnp.asarray(rng.standard_normal((4, n)), jnp.float32)
-    vals, _, _ = block_lanczos_eigsh(op, b, 14, 3, reorth="full")
-    ref = seig(a_sp.astype(np.float64), k=3, which="LA",
-               return_eigenvectors=False)[::-1]
-    np.testing.assert_allclose(np.asarray(vals), ref, rtol=2e-3)

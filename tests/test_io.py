@@ -75,9 +75,8 @@ def test_operator_from_file_distributed(tmp_path, rng):
 
 @pytest.mark.slow
 def test_auto_operator_selection(rng):
-    """format='auto' picks by kernel performance class: DIA for
-    few-diagonal matrices, windowed-ELL for banded, gathered ELL as the
-    last resort for unplannable sparsity."""
+    """format='auto' picks DIA for few-diagonal matrices and gathered
+    ELL for everything else."""
     import scipy.sparse as sp
 
     from lanczos_tpu.io import auto_operator
@@ -86,20 +85,19 @@ def test_auto_operator_selection(rng):
     lap = laplacian_2d_scipy(20, 20)
     assert isinstance(auto_operator(lap), DiaMatrix)
 
-    # banded but many-diagonal: windowed
+    # banded but many-diagonal: gathered ELL
     n = 2000
     offs = list(range(-20, 21))
     band = sp.diags([rng.standard_normal(n - abs(o)) for o in offs],
                     offs).tocsr()
     op = auto_operator(band)
-    from lanczos_tpu.ops.pallas.window_ell import WindowedEllMatrix
-    assert isinstance(op, WindowedEllMatrix)
+    assert isinstance(op, EllMatrix)
     x = rng.standard_normal(n).astype(np.float32)
-    y = op.unpermute(op.mv(op.permute(jnp.asarray(x, jnp.float32))))
+    y = op.mv(jnp.asarray(x, jnp.float32))
     ref = band @ x
     assert np.linalg.norm(np.asarray(y)[:n] - ref) < 1e-4 * np.linalg.norm(ref)
 
-    # scattered random: plan fails -> gathered ELL fallback
+    # scattered random: gathered ELL
     scat = sp.random(1500, 1500, density=0.004, random_state=0,
                      format="csr")
     assert isinstance(auto_operator(scat), EllMatrix)

@@ -62,50 +62,3 @@ def test_native_maxwell_spmv(rng):
     x = rng.standard_normal(mat.shape[0]).astype(np.float32)
     got = np.asarray(mat.mv(jnp.asarray(x)))
     np.testing.assert_allclose(got, a_ref @ x, rtol=2e-5, atol=2e-5)
-
-
-@needs_native
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_native_window_pack_matches_python(monkeypatch, dtype):
-    """The C++ two-pass windowed-ELL planner is BIT-compatible with the
-    NumPy planner (`ops.pallas.window_ell._pack_planes`), including the
-    multi-window greedy grouping on non-banded matrices."""
-    import scipy.sparse as sp
-
-    from lanczos_tpu.ops.pallas import window_ell as we
-
-    cases = []
-    cases.append(laplacian_2d_scipy(31, 23).tocsr())          # banded
-    cases.append(sp.random(500, 500, density=0.02,            # scattered
-                           random_state=1, format="csr"))
-    arrow = sp.lil_matrix((300, 300))
-    arrow.setdiag(2.0)
-    arrow[0, :] = 1.0
-    arrow[:, 0] = 1.0
-    cases.append(arrow.tocsr())                               # multi-window
-    cases.append(sp.random(260, 900, density=0.01,            # rectangular
-                           random_state=2, format="csr"))
-    for a in cases:
-        a = a.tocsr()
-        a.sum_duplicates()
-        a.data = a.data.astype(dtype)
-        got = we._pack_planes(a.indptr, a.indices, a.data, a.shape[0], 10**5)
-        monkeypatch.setattr(native, "window_pack_count",
-                            lambda *a_, **k: None)
-        ref = we._pack_planes(a.indptr, a.indices, a.data, a.shape[0], 10**5)
-        monkeypatch.undo()
-        for g, r in zip(got, ref):
-            assert g.dtype == r.dtype and g.shape == r.shape
-            np.testing.assert_array_equal(g, r)
-
-
-@needs_native
-def test_native_window_pack_respects_ppc_cap():
-    import scipy.sparse as sp
-
-    from lanczos_tpu.ops.pallas import window_ell as we
-
-    a = sp.random(400, 400, density=0.05, random_state=4, format="csr")
-    a.data = a.data.astype(np.float32)
-    with pytest.raises(we.PlanError, match="exceeds cap"):
-        we._pack_planes(a.indptr, a.indices, a.data, a.shape[0], 1)

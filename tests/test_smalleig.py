@@ -128,9 +128,8 @@ def test_newton_sqrtm_batched_and_conditioned(rng):
 
 def test_jacobi_near_converged_tau_overflow():
     """Near-converged pairs give |tau| ~ 1/apq beyond even f64 range;
-    the clamp keeps the sweep finite (on TPU the emulated f64 has only
-    f32 RANGE, so an unclamped tau NaN-poisoned --dtype float64 block
-    runs — round-5 fix)."""
+    the overflowing tau*tau must leave the rotation at the identity
+    (t -> 0), never NaN-poison the sweep."""
     from lanczos_tpu.ops.smalleig import jacobi_eigh
 
     a = jnp.asarray(

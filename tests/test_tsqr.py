@@ -133,14 +133,14 @@ class TestTsqrSharded:
         import jax.numpy as jnp
         from lanczos_tpu.methods.eigs import block_lanczos_eigsh
         from lanczos_tpu.models.laplacian import laplacian_2d_scipy
-        from lanczos_tpu.parallel.dist_windowed import halo_sharded_windowed
+        from lanczos_tpu.parallel.dist_operator import halo_sharded_ell
 
         spikes = np.zeros(1600)
         spikes[:3] = [10.0, 8.0, 6.0]
         a = (laplacian_2d_scipy(40, 40) + sp.diags(spikes)).tocsr().astype(
             np.float32
         )
-        A = halo_sharded_windowed(a, self._mesh(), cpb=2, spg=2)
+        A = halo_sharded_ell(a, self._mesh())
         rng = np.random.default_rng(6)
         b = A.pad_vector(rng.standard_normal((4, 1600)).astype(np.float32))
         vals, _, _ = block_lanczos_eigsh(
